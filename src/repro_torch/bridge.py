@@ -1,0 +1,57 @@
+"""Parameter bridge: the JAX package's weights, as numpy, into the port.
+
+The JAX side converts its parameter pytree leaf by leaf with
+``np.asarray``; :func:`params_from_jax` turns that tree of numpy arrays
+into the port's dict of tensors.  The layouts are the same on both sides
+(layers stacked ``[L, ...]``), so the bridge checks names and shapes and
+converts dtypes: bfloat16 arrives as ``ml_dtypes.bfloat16`` and crosses
+as its ``uint16`` bit pattern, as ``repro/checkpoint/serialization.py``
+stores it, so no value is rounded on the way.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+TOP = {"embed", "layers", "final_norm", "lm_head"}
+LAYER = {"ln1", "ln2", "attn", "mlp"}
+ATTN = {"wq", "wk", "wv", "wo", "bq", "bk", "bv"}
+MLP = {"wg", "wu", "wd"}
+
+
+def tensor_from_numpy(a: np.ndarray, device: Any = "cpu") -> torch.Tensor:
+    """One array to a tensor of the same dtype and bits."""
+    a = np.array(a)       # a writable, contiguous copy torch may own
+    if a.dtype.name == "bfloat16":
+        bits = a.view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _check_keys(tree: Dict[str, Any], allowed: set, where: str) -> None:
+    extra = set(tree) - allowed
+    if extra:
+        raise NotImplementedError(
+            f"{where}: parameters {sorted(extra)} belong to a family the "
+            "port does not serve yet (dense only)")
+
+
+def params_from_jax(tree: Dict[str, Any], device: Any = "cpu"
+                    ) -> Dict[str, Any]:
+    """The JAX package's dense-family parameter tree (numpy leaves) as
+    the port's parameter dict on ``device``."""
+    _check_keys(tree, TOP, "params")
+    layers = tree["layers"]
+    _check_keys(layers, LAYER, "params['layers']")
+    _check_keys(layers["attn"], ATTN, "params['layers']['attn']")
+    _check_keys(layers["mlp"], MLP, "params['layers']['mlp']")
+
+    def conv(x: Any) -> Any:
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return tensor_from_numpy(x, device)
+
+    return conv(tree)

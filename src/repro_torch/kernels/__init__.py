@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+* ``paged_attention`` — paged chunk attention (decode, verify, suffix
+  prefill over CoW KV pages), CUDA C++ for sm_90a.
+* ``flash_attention`` — causal GQA flash attention forward (dense
+  prefill), CUDA C++ for sm_90a.
+
+A wrapper runs its plain PyTorch version only for CPU tensors; for CUDA
+tensors it launches its kernel or raises.
+"""

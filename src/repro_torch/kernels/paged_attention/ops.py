@@ -1,0 +1,136 @@
+"""Paged chunk attention: the wrapper the serving engine calls.
+
+One function serves the fused decode step (t = 1), speculative verify
+(t = k) and the prefix-cache suffix prefill (t = suffix length).  A CPU
+tensor runs the plain version in ``ref.py``; a CUDA tensor launches the
+hand-written kernel in ``csrc/paged_chunk_attention.cu`` or raises — there
+is no fallback on the card.  ``LAUNCHES`` counts kernel launches: two for a
+call whose page walk is split (the attention kernel and the combine kernel
+that merges its splits), one otherwise.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention.ref import paged_chunk_attention_ref
+
+NAME = "paged_chunk_attention"
+LAUNCHES = {NAME: 0}
+HEAD_DIMS = (32, 64, 128)
+ROWS_PER_BLOCK = 8     # PCA_ROWS in the kernel: query rows per block
+MAX_SPLITS = 16
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def n_splits(b: int, t: int, kv: int, g: int, device: torch.device) -> int:
+    """How many page ranges each row's walk is split into: 1 when the
+    (sequence, kv head, row tile) blocks already fill a wave of SMs, else
+    enough to give the card about four blocks per SM."""
+    blocks = b * kv * -(-(t * g) // ROWS_PER_BLOCK)
+    sms = _sm_count(device)
+    if blocks >= sms:
+        return 1
+    return min(MAX_SPLITS, -(-4 * sms // blocks))
+
+
+def _check(q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
+           page_map, k_scales, v_scales) -> bool:
+    """Validate a CUDA call; returns whether the pools are int8."""
+    b, t, kv, g, hd = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{NAME}: q must be float32 or bfloat16, got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head_dim {hd} not in {HEAD_DIMS}")
+    quant = k_pages.dtype == torch.int8
+    pool_dtype = torch.int8 if quant else q.dtype
+    expect = {
+        "k_new": (k_new, (b, t, kv, hd), q.dtype),
+        "v_new": (v_new, (b, t, kv, hd), q.dtype),
+        "k_pages": (k_pages, (k_pages.shape[0], k_pages.shape[1], kv, hd),
+                    pool_dtype),
+        "v_pages": (v_pages, tuple(k_pages.shape), pool_dtype),
+        "block_tables": (block_tables, (b, block_tables.shape[-1]),
+                         torch.int32),
+        "lengths": (lengths, (b,), torch.int32),
+        "page_map": (page_map, (k_pages.shape[0],), torch.int32),
+    }
+    if quant:
+        if k_scales is None or v_scales is None:
+            raise ValueError(f"{NAME}: int8 pools need k_scales and v_scales")
+        for name, x in (("k_scales", k_scales), ("v_scales", v_scales)):
+            expect[name] = (x, (k_pages.shape[0], kv), torch.float32)
+    for name, (x, shape, dtype) in {"q": (q, q.shape, q.dtype),
+                                    **expect}.items():
+        if x.device != q.device:
+            raise ValueError(f"{NAME}: {name} on {x.device}, q on {q.device}")
+        if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
+            raise ValueError(f"{NAME}: {name} is {tuple(x.shape)} {x.dtype}, "
+                             f"expected {tuple(shape)} {dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{NAME}: {name} must be contiguous")
+    return quant
+
+
+def paged_chunk_attention(
+    q: torch.Tensor,             # [b, t, kv, g, hd]
+    k_new: torch.Tensor,         # [b, t, kv, hd]
+    v_new: torch.Tensor,
+    k_pages: torch.Tensor,       # [n_pages, page, kv, hd] (int8 if quantized)
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [b, max_pages] int32
+    lengths: torch.Tensor,       # [b] int32 cached length (chunk excluded)
+    page_map: torch.Tensor,      # [n_pages] int32 CoW dst -> src
+    k_scales: Optional[torch.Tensor] = None,  # [n_pages, kv] f32 (int8)
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fused CoW-aware chunk attention.  Returns ``[b, t, kv, g, hd]``.
+
+    ``lengths[i] <= max_pages * page`` and every table entry below
+    ``ceil(lengths[i] / page)`` is a valid page (the branch manager's
+    tables are); entries past that are never read.
+    """
+    if q.device.type == "cpu":
+        return paged_chunk_attention_ref(q, k_new, v_new, k_pages, v_pages,
+                                         block_tables, lengths, page_map,
+                                         k_scales, v_scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"{NAME}: no kernel for device {q.device}")
+    quant = _check(q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
+                   page_map, k_scales, v_scales)
+    _build.check_aligned(NAME, q=q, k_new=k_new, v_new=v_new,
+                         k_pages=k_pages, v_pages=v_pages)
+    b, t, kv, g, hd = q.shape
+    out = torch.empty_like(q)
+    splits = n_splits(b, t, kv, g, q.device)
+    part_m = part_l = part_acc = None
+    if splits > 1:    # per-split softmax states, merged by the kernel
+        rows = b * t * kv * g
+        part_m = torch.empty(splits * rows, dtype=torch.float32,
+                             device=q.device)
+        part_l = torch.empty_like(part_m)
+        part_acc = torch.empty(splits * rows * hd, dtype=torch.float32,
+                               device=q.device)
+    fn = getattr(_build.library(NAME), NAME)
+    rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+            lengths.data_ptr(), page_map.data_ptr(),
+            k_scales.data_ptr() if quant else None,
+            v_scales.data_ptr() if quant else None, out.data_ptr(),
+            *(x.data_ptr() if x is not None else None
+              for x in (part_m, part_l, part_acc)),
+            b, t, kv, g, hd, k_pages.shape[1], block_tables.shape[1], splits,
+            int(q.dtype == torch.bfloat16), int(quant), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(NAME, rc)
+    LAUNCHES[NAME] += 2 if splits > 1 else 1
+    return out

@@ -1,0 +1,31 @@
+"""Model facade of the port: one object per architecture config."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import decode as D
+from repro_torch.models import transformer as T
+
+Params = Dict[str, Any]
+
+
+@dataclass
+class Model:
+    cfg: ArchConfig
+
+    def __post_init__(self):
+        T.check_servable(self.cfg)
+
+    def init(self, generator: torch.Generator) -> Params:
+        """Random weights from a seeded generator, on its device."""
+        return T.init_transformer(self.cfg, generator)
+
+    def prefill(self, params: Params, tokens: torch.Tensor,
+                max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return D.prefill(self.cfg, params, tokens, max_len=max_len)
