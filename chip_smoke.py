@@ -8,23 +8,38 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits non-zero; nothing is caught into success):
 
 1. the card's name and power limit, torch and CUDA versions, and the build
-   of every kernel from ``src/repro_torch/kernels/**/csrc`` with ``nvcc``;
-2. each hand-written kernel against its plain PyTorch version on the card,
-   at hd 32/128 and the main path's shapes, f32, bf16 and int8 pools, a CoW
-   ``page_map`` and a zero-length row;
-3. the main path at full width: ``qwen2-1.5b`` in bf16 with random weights
+   of every kernel from ``src/repro_torch/kernels/**/csrc`` with ``nvcc``
+   (one process per source, all at once);
+2. each hand-written kernel against its plain PyTorch version on the card:
+   paged chunk attention (K1) at hd 32/128, f32, bf16 and int8 pools, a CoW
+   ``page_map`` and a zero-length row; flash attention (K2); cached-only
+   paged attention (K3) at qwen2-1.5b's widths, b=32, ragged lengths; the
+   SSD scan (K4) at mamba2-2.7b's widths (80 heads, P 64, N 128, and N 64),
+   s 1000 and 4096, bf16 and f32;
+3. the dense path at full width: ``qwen2-1.5b`` in bf16 with random weights
    from the port's seeded init, served by ``ServeEngine`` — 8 prompts of
    128-1024 tokens (two share a 512-token head, so one suffix prefill runs),
-   4 lazy-CoW branches each, 32 decode steps at batch 32, a speculative
+   4 lazy-CoW branches each, decode steps at batch 32, a speculative
    verify, first-commit-wins, a checkpoint/restore, and a full release;
-   the kernels' launch counters are zeroed just before and read just after;
-4. end-to-end parity: the ``paper-agentic`` float32 engine on the card
-   (kernels) and on the CPU (plain versions) must produce identical greedy
-   tokens;
-5. the timing of each kernel at the main path's shapes beside its plain
+   first on the fused path, then (path B) on the legacy ``attn_impl="ref"``
+   path for 8 steps;
+4. the SSM path at full width (path A): ``mamba2-2.7b`` in bf16 with random
+   weights, 4 prompts of 1000-4096 tokens prefilled through the SSD scan,
+   each cache snapshotted into its own ``BranchStore`` and forked 8 ways,
+   32 decode steps of all 32 branches as one batch, one winner committed
+   per request, its siblings stale and reaped, device memory back to where
+   it was before the fork;
+5. end-to-end parity, card (kernels) against CPU (plain versions): the
+   ``paper-agentic`` float32 engine, fused and legacy, identical greedy
+   tokens; the mamba2-2.7b widths at 4 layers in float32, the branching
+   cycle, identical tokens and committed state within 1e-4;
+6. the timing of each kernel at the main paths' shapes beside its plain
    version, the nearest single PyTorch call where one exists, and the
    card's bound; then the ``{"kernels": [...]}`` line, the card line and the
    final ``{"ok": true, ...}`` line.
+
+Every path's kernel launch counters are zeroed just before it runs and
+read just after; a kernel of the path that never launched fails the run.
 
 It needs nothing but the checkout: no network, no weights on disk.
 """
@@ -190,6 +205,69 @@ def bound_ms(nbytes: int, ops: int, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def cached_case(case) -> dict:
+    """Inputs of paged_attention from a t = 1 case of paged_chunk_attention:
+    the decoded token is already in its slot, so each row's length counts
+    it; no page_map, no inline chunk."""
+    return {"q": case["q"][:, 0].contiguous(), "k_pages": case["k_pages"],
+            "v_pages": case["v_pages"], "block_tables": case["block_tables"],
+            "lengths": case["lengths"]}
+
+
+def cached_cost(case) -> tuple:
+    """(bytes, operations) of paged_attention: each row's cached K/V up to
+    its length, q, the output, the table entries it walks, the lengths."""
+    b, kv, g, hd = case["q"].shape
+    page = case["k_pages"].shape[1]
+    lens = case["lengths"].tolist()
+    pages = sum(-(-n // page) for n in lens)
+    nbytes = (2 * b * kv * g * hd * case["q"].element_size()
+              + 2 * sum(lens) * kv * hd * case["k_pages"].element_size()
+              + pages * 4 + b * 4)
+    return nbytes, 4 * hd * kv * g * sum(lens)
+
+
+def ragged_lengths(gen, b: int, longest: int) -> list:
+    """b lengths: 0, 1, one full page and the longest first, the rest
+    uniform in [1, longest]."""
+    rest = torch.randint(1, longest + 1, (b - 4,), generator=gen,
+                         device="cuda").tolist()
+    return [0, 1, 16, longest] + rest
+
+
+def ssd_case(gen, *, s, H=80, P=64, N=128, dtype=torch.bfloat16, b=1):
+    """SSD scan inputs at the model's scales: x, B and C after the conv's
+    SiLU, dt after softplus with init_mamba's dt_bias, A from its A_log."""
+    import torch.nn.functional as F
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    dt_bias = torch.log(torch.expm1(torch.logspace(-3, -1, H, device="cuda")))
+    return (F.silu(rand(b, s, H, P)).to(dtype),
+            F.softplus(rand(b, s, H) + dt_bias),
+            -torch.linspace(1.0, 16.0, H, device="cuda"),
+            F.silu(rand(b, s, N)).to(dtype), F.silu(rand(b, s, N)).to(dtype))
+
+
+SSD_ROWS = 32    # the kernel's row tile
+
+
+def ssd_cost(x, B) -> tuple:
+    """(bytes, operations) of the SSD scan: x, B, C, dt and A read once, y
+    and the f32 state written once; the products of the chunked form at
+    the kernel's row tile Q (C.B over the causal half of each chunk once
+    for all heads, then per head G.x, C.S and the state update)."""
+    b, s, H, P = x.shape
+    N = B.shape[-1]
+    el = x.element_size()
+    nbytes = (2 * x.numel() * el + 2 * B.numel() * el + b * s * H * 4
+              + H * 4 + b * H * N * P * 4)
+    tri = s * (SSD_ROWS + 1) // 2          # causal (q, k) pairs per row tile
+    macs = b * (tri * N + H * (tri * P + 2 * s * N * P))
+    return nbytes, 2 * macs
+
+
 def flash_case(gen, *, s, h=12, kv=2, hd=128, dtype=torch.bfloat16):
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -210,9 +288,12 @@ def flash_cost(q, k) -> tuple:
 def phase_kernels(gen) -> None:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.paged_attention import paged_chunk_attention
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_chunk_attention)
     from repro_torch.kernels.paged_attention.ref import (
-        paged_chunk_attention_ref)
+        paged_attention_ref, paged_chunk_attention_ref)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     log("== phase 2: kernels against their plain versions")
     for hd, g in ((32, 2), (128, 6)):
@@ -243,33 +324,69 @@ def phase_kernels(gen) -> None:
                 f"{str(dtype)[6:]} {tol_text(c, dtype)}")
             if not c["ok"]:
                 fail("flash_attention disagrees with its plain version")
+    for dtype in (torch.bfloat16, torch.float32):
+        lengths = ragged_lengths(gen, 32, 1055)
+        case = cached_case(paged_case(gen, b=32, t=1, kv=2, g=6, hd=128,
+                                      page=16, lengths=lengths, dtype=dtype))
+        out = paged_attention(**case)
+        torch.cuda.synchronize()
+        c = compare(out, paged_attention_ref(**case))
+        zero = not out[0].any()
+        log(f"K3 paged_attention b=32 kv=2 g=6 hd=128 lengths 0..1055 "
+            f"{str(dtype)[6:]} {tol_text(c, dtype)}, zero-length row 0: "
+            f"{zero}")
+        if not c["ok"] or not zero:
+            fail("paged_attention disagrees with its plain version")
+    bf16, f32 = torch.bfloat16, torch.float32
+    for N, s, dtype in ((128, 1000, bf16), (128, 1000, f32), (128, 4096, bf16),
+                        (128, 4096, f32), (64, 1000, bf16), (64, 4096, f32)):
+        args = ssd_case(gen, s=s, N=N, dtype=dtype)
+        y, state = ssd_scan(*args)
+        torch.cuda.synchronize()
+        y_ref, state_ref = ssd_scan_ref(*args)
+        cy, cs = compare(y, y_ref), compare(state, state_ref)
+        log(f"K4 ssd_scan H=80 P=64 N={N} s={s} {str(dtype)[6:]}: y "
+            f"{tol_text(cy, dtype)}; state {tol_text(cs, torch.float32)}")
+        if not (cy["ok"] and cs["ok"]):
+            fail("ssd_scan disagrees with its plain version")
 
 
-def phase_main_path(gen_seed: int = 0) -> dict:
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as k2
-    from repro_torch.kernels.paged_attention import ops as k1
-    from repro_torch.models import Model
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    return {**paged_ops.LAUNCHES, **flash_ops.LAUNCHES, **ssd_ops.LAUNCHES}
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    for counts in (paged_ops.LAUNCHES, flash_ops.LAUNCHES, ssd_ops.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def serve_dense(model, params, *, attn_impl: str, steps: int,
+                seed: int = 0) -> dict:
+    """One run of the dense load through ServeEngine (phase 3): the fused
+    path with attn_impl="auto", path B with "ref"."""
     from repro_torch.runtime import ServeEngine
 
-    log("== phase 3: main path, qwen2-1.5b bf16, random weights")
-    cfg = get_config("qwen2-1.5b")
-    model = Model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(gen_seed))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(params))
-    log(f"init {n_params / 1e9:.3f} B params in "
-        f"{time.perf_counter() - t0:.1f} s")
+    cfg = model.cfg
+    legacy = attn_impl == "ref"
     eng = ServeEngine(model, params, page_size=16, num_pages=2048,
-                      max_pages_per_seq=128, prefix_cache=True)
-    rng = np.random.default_rng(gen_seed)
+                      max_pages_per_seq=128, prefix_cache=True,
+                      attn_impl=attn_impl)
+    rng = np.random.default_rng(seed)
     lens = [1024, 768, 128, 256, 384, 512, 640, 896]
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     prompts[1][:512] = prompts[0][:512]        # a shared 512-token head
 
-    k1.LAUNCHES[k1.NAME] = 0
-    k2.LAUNCHES[k2.NAME] = 0
+    zero_launches()
     prefill_ms = []
     roots = []
     for p in prompts:
@@ -284,17 +401,21 @@ def phase_main_path(gen_seed: int = 0) -> dict:
     branches = {r: eng.fork(r, 4) for r in roots}
     batch = [b for r in roots for b in branches[r]]
     step_ms = []
-    for _ in range(32):
+    for _ in range(steps):
         t0 = time.perf_counter()
         out = eng.decode(batch)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if len(out) != 32 or not all(0 <= x < cfg.vocab_size for x in out):
             fail(f"bad decode output {out}")
-    if eng.cow_faults != 32 or eng.cow_inline_steps != 1:
-        fail(f"expected 32 inline CoW faults in one step: {eng.stats()}")
-    # cached lengths the last timed step's kernel saw
-    decode_lengths = [eng.kv.length(x) - 1 for x in batch]
-    profile = profile_decode(eng, batch)
+    faults = (eng.cow_faults, eng.cow_dispatches, eng.cow_inline_steps)
+    if faults != ((32, 1, 0) if legacy else (32, 0, 1)):
+        fail(f"expected 32 CoW faults serviced "
+             f"{'as one dispatch' if legacy else 'inline in one step'}: "
+             f"{eng.stats()}")
+    # the lengths the last timed step's attention read: the cached prefix
+    # (K1, token inline) or the prefix and the token (K3)
+    decode_lengths = [eng.kv.length(x) - (0 if legacy else 1) for x in batch]
+    profile = profile_steps(lambda: eng.decode(batch))
     probe = branches[roots[0]][0]
     verify_length = eng.kv.length(probe)
     drafts = [rng.integers(0, cfg.vocab_size, 4).tolist() for _ in range(4)]
@@ -312,8 +433,8 @@ def phase_main_path(gen_seed: int = 0) -> dict:
     if before != after or not freed:
         fail(f"checkpoint/restore changed the branch: {before} {after}")
     final = eng.decode(roots)
-    launches = {k1.NAME: k1.LAUNCHES[k1.NAME], k2.NAME: k2.LAUNCHES[k2.NAME]}
     torch.cuda.synchronize()
+    launches = launch_counts()
     for r in roots:
         eng.release(r)
     st = eng.stats()
@@ -321,11 +442,21 @@ def phase_main_path(gen_seed: int = 0) -> dict:
     if (st["sequences_live"] or st["pages_free"] + st["prefix_pages_cached"]
             != st["pages_total"]):
         fail("pool not drained back to full (free + prefix-cached pages)")
-    log(f"launches on the main path: {launches}")
-    if not all(launches.values()):
-        fail(f"a kernel of the main path never launched: {launches}")
+    log(f"launches on the path: {launches}")
+    needed = ["paged_chunk_attention", "flash_attention"]
+    needed += ["paged_attention"] if legacy else []
+    if not all(launches[k] for k in needed):
+        fail(f"a kernel of the path never launched: {launches}")
+    if not legacy and launches["paged_attention"]:
+        fail(f"the fused path launched the legacy kernel: {launches}")
     decode_p50 = statistics.median(step_ms)
-    res = {
+    card = card_line()
+    log(f"prefill ms per request (prompt {lens}): "
+        f"{[round(x, 3) for x in prefill_ms]} ({card})")
+    log(f"decode step ms p50 {decode_p50:.3f} (b=32, {steps} steps, "
+        f"attn_impl={attn_impl!r}), {32 / decode_p50 * 1e3:.1f} tokens/s "
+        f"({card})")
+    return {
         "prefill_ms": [round(x, 3) for x in prefill_ms],
         "suffix_prefill_ms": round(prefill_ms[1], 3),
         "decode_step_ms_p50": round(decode_p50, 3),
@@ -336,18 +467,186 @@ def phase_main_path(gen_seed: int = 0) -> dict:
         "verify_length": verify_length,
         "profile": profile,
     }
-    card = card_line()
-    log(f"prefill ms per request (prompt {lens}): {res['prefill_ms']} "
-        f"({card})")
-    log(f"decode step ms p50 {decode_p50:.3f} (b=32), "
-        f"{res['decode_tokens_per_s']} tokens/s ({card})")
-    del eng, params
+
+
+def phase_dense(seed: int = 0) -> tuple:
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    log("== phase 3: dense path, qwen2-1.5b bf16, random weights")
+    cfg = get_config("qwen2-1.5b")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"init {n_params / 1e9:.3f} B params in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fused = serve_dense(model, params, attn_impl="auto", steps=32, seed=seed)
+    log("-- path B: the same load on the legacy attn_impl='ref' path")
+    legacy = serve_dense(model, params, attn_impl="ref", steps=8, seed=seed)
+    del params
     torch.cuda.empty_cache()
-    return res
+    return fused, legacy
 
 
-def profile_decode(eng, batch, steps: int = 2) -> dict:
-    """Device time by kernel and the idle share over a few decode steps
+#: the decode cache's shape as a pytree (leaves are placeholders)
+SSM_CACHE = {"conv": 0, "ssm": 0}
+
+
+def ssm_cycle(model, params, prompts, *, n_branches: int, steps: int,
+              device: str, timed: bool = False) -> dict:
+    """The JAX package's SSM serving path (DESIGN §6), which has no
+    engine: each prompt is prefilled (through the SSD scan) and its cache
+    snapshotted into ROOT of its own BranchStore; ROOT forks n_branches
+    whose first tokens are the prefill's best n; every step decodes all
+    branches of all requests as one batch (their [L, 1, ...] states
+    stacked on the batch dim) and writes each slice back to its branch as
+    a tensor of its own; then per request the branch with the highest mean
+    log-probability commits, its siblings must read as stale, and all are
+    reaped."""
+    from repro_torch.core import BranchStore, StaleBranchError
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    stores, prefill_ms, first = [], [], []
+    for p in prompts:
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params,
+                                      torch.tensor([p], device=device))
+        sync()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        store = BranchStore()
+        store.snapshot_pytree(store.ROOT, cache)
+        stores.append(store)
+        first.append(torch.log_softmax(logits[0, -1].float(), dim=-1)
+                     .topk(n_branches))
+        del logits, cache
+    sync()
+    mem_before = torch.cuda.memory_allocated() if cuda else 0
+    branches, toks, score = [], [], []
+    for r, store in enumerate(stores):
+        kids = store.fork(store.ROOT, n_branches)
+        for kid, t, lp in zip(kids, first[r].indices.tolist(),
+                              first[r].values.tolist()):
+            branches.append((r, store, kid))
+            toks.append([t])
+            score.append(lp)
+    del first
+    pos = [len(prompts[r]) for r, _, _ in branches]
+
+    def step() -> None:
+        caches = [store.restore_pytree(kid, SSM_CACHE)
+                  for _, store, kid in branches]
+        batch = {n: torch.cat([c[n] for c in caches], dim=1)
+                 for n in SSM_CACHE}
+        del caches
+        logits, new = model.decode_step(
+            params, batch, torch.tensor([[t[-1]] for t in toks],
+                                        device=device),
+            torch.tensor(pos, device=device))
+        del batch
+        best = torch.log_softmax(logits[:, -1].float(), dim=-1).max(dim=-1)
+        for i, (_, store, kid) in enumerate(branches):
+            # a tensor of its own: a view would keep the whole batch alive
+            # and alias the siblings
+            store.write_many(kid, store.flatten_pytree(
+                {n: v[:, i:i + 1].clone() for n, v in new.items()}))
+        for i, (t, lp) in enumerate(zip(best.indices.tolist(),
+                                        best.values.tolist())):
+            toks[i].append(t)
+            score[i] += lp
+            pos[i] += 1
+
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()                        # .tolist() synced the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    profile = profile_steps(step) if timed else None
+    winners = []
+    for r, store in enumerate(stores):
+        mine = [i for i, b in enumerate(branches) if b[0] == r]
+        w = max(mine, key=lambda i: score[i] / len(toks[i]))
+        store.commit(branches[w][2])
+        winners.append(w)
+        for i in mine:
+            if i != w:
+                try:
+                    store.read(branches[i][2], "['ssm']")
+                    fail(f"branch {branches[i][2]} read after its sibling "
+                         "committed")
+                except StaleBranchError:
+                    pass
+            store.reap(branches[i][2])
+    sync()
+    return {
+        "prefill_ms": prefill_ms, "step_ms": step_ms, "profile": profile,
+        "tokens": toks, "winners": winners,
+        "states": [store.restore_pytree(store.ROOT, SSM_CACHE)
+                   for store in stores],
+        "mem_before": mem_before,
+        "mem_after": torch.cuda.memory_allocated() if cuda else 0,
+    }
+
+
+def phase_ssm(seed: int = 0) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    log("== phase 4: path A, mamba2-2.7b bf16, random weights, 4 requests "
+        "x 8 branches")
+    cfg = get_config("mamba2-2.7b")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"init {n_params / 1e9:.3f} B params "
+        f"({sum(p.nbytes for p in _leaves(params)) / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    lens = [1000, 2048, 3000, 4096]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    zero_launches()
+    res = ssm_cycle(model, params, prompts, n_branches=8, steps=32,
+                    device="cuda", timed=True)
+    launches = launch_counts()
+    log(f"launches on the path: {launches}")
+    if launches["ssd_scan"] != cfg.num_layers * len(prompts):
+        fail(f"expected {cfg.num_layers} ssd_scan launches per prefill: "
+             f"{launches}")
+    drift = abs(res["mem_after"] - res["mem_before"]) / res["mem_before"]
+    log(f"device memory before the fork {res['mem_before'] / 1e9:.3f} GB, "
+        f"after commit and reap {res['mem_after'] / 1e9:.3f} GB "
+        f"({drift:.2%} apart)")
+    if drift > 0.05:
+        fail("the reaped branches' states were not released")
+    for toks in res["tokens"]:
+        if len(toks) != 35 or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"bad branch tokens {toks}")
+    for state in res["states"]:
+        if not all(torch.isfinite(v).all() for v in state.values()):
+            fail("the committed state is not finite")
+    p50 = statistics.median(res["step_ms"])
+    card = card_line()
+    log(f"prefill ms per request (prompt {lens}): "
+        f"{[round(x, 3) for x in res['prefill_ms']]} ({card})")
+    log(f"decode step ms p50 {p50:.3f} (b=32: 4 requests x 8 branches, "
+        f"32 steps), {32 / p50 * 1e3:.1f} tokens/s ({card})")
+    log(f"winners {res['winners']}")
+    del params, res["states"]
+    torch.cuda.empty_cache()
+    return {"prefill_ms": [round(x, 3) for x in res["prefill_ms"]],
+            "decode_step_ms_p50": round(p50, 3),
+            "decode_tokens_per_s": round(32 / p50 * 1e3, 1),
+            "launches": launches, "prefill_lengths": lens,
+            "profile": res["profile"]}
+
+
+def profile_steps(step, steps: int = 2) -> dict:
+    """Device time by kernel and the idle share over a few steps
     (torch.profiler; host wall clock around the steps, which sync)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -356,7 +655,7 @@ def profile_decode(eng, batch, steps: int = 2) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.decode(batch)
+            step()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = []
     for e in prof.key_averages():
@@ -371,17 +670,20 @@ def profile_decode(eng, batch, steps: int = 2) -> dict:
         log("profile: device time not measured (no CUDA events)")
         return {"device_busy_ms_per_step": None, "idle_share": None}
     kernels.sort(reverse=True)
-    log(f"profile over {steps} decode steps: wall {wall_us / steps / 1e3:.3f}"
+    log(f"profile over {steps} steps: wall {wall_us / steps / 1e3:.3f}"
         f" ms/step, device busy {busy / steps / 1e3:.3f} ms/step, idle "
         f"{1 - busy / wall_us:.3f}, {sum(k[1] for k in kernels) // steps} "
         "kernels/step")
     for us, count, name in kernels[:8]:
         log(f"  {us / steps / 1e3:8.3f} ms/step {count // steps:5d}x "
             f"{name[:90]}")
-    k1 = [k for k in kernels if "paged_chunk_" in k[2]]  # attention, combine
-    log(f"  K1 (attention + combine): "
-        f"{sum(k[0] for k in k1) / steps / 1e3:.3f} ms/step, "
-        f"{sum(k[1] for k in k1) // steps} launches/step")
+    for label, key in (("K1 attention", "paged_chunk_attention_kernel"),
+                       ("K3 attention", "paged_attention_kernel"),
+                       ("K1/K3 split combine", "paged_chunk_combine_kernel")):
+        mine = [k for k in kernels if key in k[2]]
+        if mine:
+            log(f"  {label}: {sum(k[0] for k in mine) / steps / 1e3:.3f} "
+                f"ms/step, {sum(k[1] for k in mine) // steps} launches/step")
     return {"device_busy_ms_per_step": busy / steps / 1e3,
             "idle_share": 1 - busy / wall_us}
 
@@ -392,6 +694,12 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 def exercise(eng):
@@ -413,7 +721,7 @@ def phase_parity() -> None:
     from repro_torch.models import Model
     from repro_torch.runtime import ServeEngine
 
-    log("== phase 4: paper-agentic float32, card (kernels) vs CPU (plain)")
+    log("== phase 5: parity in float32, card (kernels) vs CPU (plain)")
     # full float32 on the card: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -421,19 +729,43 @@ def phase_parity() -> None:
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
     tokens = {}
-    for dev in ("cpu", "cuda"):
-        for kv_dtype in (None, "int8"):
-            eng = ServeEngine(model, params, num_pages=128, page_size=4,
-                              max_pages_per_seq=16, kv_dtype=kv_dtype,
-                              device=dev)
-            tokens[dev, kv_dtype] = exercise(eng)
-    for kv_dtype in (None, "int8"):
-        same = tokens["cuda", kv_dtype] == tokens["cpu", kv_dtype]
-        log(f"kv_dtype={kv_dtype}: greedy tokens identical={same} "
-            f"({len(tokens['cpu', kv_dtype])} tokens)")
+    for dev, kv_dtype, impl in (("cpu", None, "auto"), ("cuda", None, "auto"),
+                                ("cuda", None, "ref"), ("cpu", "int8", "auto"),
+                                ("cuda", "int8", "auto")):
+        eng = ServeEngine(model, params, num_pages=128, page_size=4,
+                          max_pages_per_seq=16, kv_dtype=kv_dtype,
+                          attn_impl=impl, device=dev)
+        tokens[dev, kv_dtype, impl] = exercise(eng)
+    for key in (("cuda", None, "auto"), ("cuda", None, "ref"),
+                ("cuda", "int8", "auto")):
+        want = tokens["cpu", key[1], "auto"]
+        same = tokens[key] == want
+        log(f"paper-agentic {key[0]} kv_dtype={key[1]} attn_impl={key[2]!r} "
+            f"vs cpu fused: greedy tokens identical={same} ({len(want)} "
+            "tokens)")
         if not same:
-            fail(f"card {tokens['cuda', kv_dtype]} != cpu "
-                 f"{tokens['cpu', kv_dtype]}")
+            fail(f"{key}: {tokens[key]} != cpu {want}")
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), dtype="float32",
+                              num_layers=4)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 300)
+    runs = {dev: ssm_cycle(model, _to(params, dev), [prompt.tolist()],
+                           n_branches=4, steps=4, device=dev)
+            for dev in ("cpu", "cuda")}
+    same = runs["cuda"]["tokens"] == runs["cpu"]["tokens"]
+    errs = {n: (runs["cuda"]["states"][0][n].cpu()
+                - runs["cpu"]["states"][0][n]).abs().max().item()
+            for n in SSM_CACHE}
+    log(f"mamba2-2.7b widths, 4 layers, 4 branches x 4 steps: tokens "
+        f"identical={same}, winner {runs['cuda']['winners']} vs "
+        f"{runs['cpu']['winners']}, committed state max |cuda - cpu| "
+        f"{errs} (tol 1e-4)")
+    if not same or runs["cuda"]["winners"] != runs["cpu"]["winners"]:
+        fail(f"card {runs['cuda']['tokens']} != cpu {runs['cpu']['tokens']}")
+    if max(errs.values()) > 1e-4:
+        fail("the committed SSM state differs between card and CPU")
 
 
 @contextlib.contextmanager
@@ -450,16 +782,21 @@ def forced_splits(n: int):
         ops.n_splits = chosen
 
 
-def phase_timing(gen, main: dict) -> list:
+def phase_timing(gen, main: dict, legacy: dict, ssm: dict) -> list:
+    """Kernel rows: K1 and K2 at the fused dense path's shapes, K3 at path
+    B's, K4 at path A's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.paged_attention import paged_chunk_attention
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_chunk_attention)
     from repro_torch.kernels.paged_attention.ref import (
-        paged_chunk_attention_ref)
+        paged_attention_ref, paged_chunk_attention_ref)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-    log("== phase 5: kernel times at the main path's shapes "
+    log("== phase 6: kernel times at the main paths' shapes "
         f"({card_line()})")
     timer = Timer()
     rows = []
@@ -548,6 +885,65 @@ def phase_timing(gen, main: dict) -> list:
         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
     })
+    k3 = {}
+    for name, lengths in (("decode", legacy["decode_lengths"]),
+                          ("decode_len1024", [1024] * 32)):
+        case = cached_case(paged_case(gen, b=32, t=1, kv=2, g=6, hd=128,
+                                      page=16, lengths=lengths,
+                                      dtype=torch.bfloat16))
+        c = compare(paged_attention(**case), paged_attention_ref(**case))
+        log(f"K3 {name}: {tol_text(c, torch.bfloat16)}")
+        if not c["ok"]:
+            fail(f"paged_attention disagrees with its plain version at path "
+                 f"B's {name} shape")
+        ms = timer(lambda: paged_attention(**case))
+        plain = timer(lambda: paged_attention_ref(**case), 5)
+        bnd, by = bound_ms(*cached_cost(case), torch.bfloat16)
+        k3[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                        max_abs_err=c["max_abs_err"])
+        log(f"K3 {name} b=32 (lengths {min(lengths)}-{max(lengths)}): "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+            f"({by})")
+    d = k3["decode"]
+    rows.append({
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                  "paged_chunk_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:114",
+        "launches": legacy["launches"]["paged_attention"],
+        "max_abs_err": d["max_abs_err"], "ms": d["ms"],
+        "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+        "bound_by": d["bound_by"], "library_ms": None,
+    })
+    k4 = {}
+    for s in ssm["prefill_lengths"]:
+        args = ssd_case(gen, s=s)
+        y_ref, state_ref = ssd_scan_ref(*args)
+        y, state = ssd_scan(*args)
+        cy, cs = compare(y, y_ref), compare(state, state_ref)
+        log(f"K4 s={s}: y {tol_text(cy, torch.bfloat16)}; state "
+            f"{tol_text(cs, torch.float32)}")
+        if not (cy["ok"] and cs["ok"]):
+            fail(f"ssd_scan disagrees with its plain version at path A's "
+                 f"s={s}")
+        ms = timer(lambda: ssd_scan(*args))
+        plain = timer(lambda: ssd_scan_ref(*args), 5)
+        bnd, by = bound_ms(*ssd_cost(args[0], args[3]), torch.bfloat16)
+        k4[s] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                     max_abs_err=max(cy["max_abs_err"], cs["max_abs_err"]))
+        log(f"K4 s={s} H=80 P=64 N=128 bf16: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+        del args, y_ref, state_ref, y, state
+    d = k4[max(k4)]
+    rows.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:92",
+        "launches": ssm["launches"]["ssd_scan"],
+        "max_abs_err": d["max_abs_err"], "ms": d["ms"],
+        "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+        "bound_by": d["bound_by"], "library_ms": None,
+    })
     return rows
 
 
@@ -576,18 +972,23 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     t0 = time.perf_counter()
     phase_kernels(gen)
-    main_res = phase_main_path()
+    dense, legacy = phase_dense()
+    ssm = phase_ssm()
     phase_parity()
-    rows = phase_timing(gen, main_res)
+    rows = phase_timing(gen, dense, legacy, ssm)
     log(f"total {time.perf_counter() - t0:.1f} s after the build")
-    log("main path: " + json.dumps({k: main_res[k] for k in (
-        "prefill_ms", "suffix_prefill_ms", "decode_step_ms_p50",
-        "decode_tokens_per_s", "launches", "profile")}))
+    keys = ("prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",
+            "launches", "profile")
+    for name, res in (("dense path (fused)", dense),
+                      ("path B (attn_impl='ref')", legacy),
+                      ("path A (mamba2-2.7b)", ssm)):
+        log(f"{name}: " + json.dumps({k: res[k] for k in keys}))
     print(json.dumps({"kernels": rows}))
     print(card)
+    # every phase ran on device 0: the run used one card
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
 
 
 if __name__ == "__main__":

@@ -20,6 +20,9 @@ TOP = {"embed", "layers", "final_norm", "lm_head"}
 LAYER = {"ln1", "ln2", "attn", "mlp"}
 ATTN = {"wq", "wk", "wv", "wo", "bq", "bk", "bv"}
 MLP = {"wg", "wu", "wd"}
+SSM_LAYER = {"ln", "mamba"}
+MAMBA = {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w",
+         "out_proj"}
 
 
 def tensor_from_numpy(a: np.ndarray, device: Any = "cpu") -> torch.Tensor:
@@ -36,18 +39,22 @@ def _check_keys(tree: Dict[str, Any], allowed: set, where: str) -> None:
     if extra:
         raise NotImplementedError(
             f"{where}: parameters {sorted(extra)} belong to a family the "
-            "port does not serve yet (dense only)")
+            "port does not serve yet (it serves dense and SSM)")
 
 
 def params_from_jax(tree: Dict[str, Any], device: Any = "cpu"
                     ) -> Dict[str, Any]:
-    """The JAX package's dense-family parameter tree (numpy leaves) as
-    the port's parameter dict on ``device``."""
+    """The JAX package's dense- or SSM-family parameter tree (numpy
+    leaves) as the port's parameter dict on ``device``."""
     _check_keys(tree, TOP, "params")
     layers = tree["layers"]
-    _check_keys(layers, LAYER, "params['layers']")
-    _check_keys(layers["attn"], ATTN, "params['layers']['attn']")
-    _check_keys(layers["mlp"], MLP, "params['layers']['mlp']")
+    if "mamba" in layers:
+        _check_keys(layers, SSM_LAYER, "params['layers']")
+        _check_keys(layers["mamba"], MAMBA, "params['layers']['mamba']")
+    else:
+        _check_keys(layers, LAYER, "params['layers']")
+        _check_keys(layers["attn"], ATTN, "params['layers']['attn']")
+        _check_keys(layers["mlp"], MLP, "params['layers']['mlp']")
 
     def conv(x: Any) -> Any:
         if isinstance(x, dict):

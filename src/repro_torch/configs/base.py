@@ -4,7 +4,7 @@ Every assigned architecture is a frozen :class:`ArchConfig`; the registry
 maps ``--arch <id>`` to it.  ``reduced()`` produces the tiny same-family
 config used by CPU tests.  The port's copy of the JAX package's
 ``repro/configs/base.py``; it registers only the configurations the port
-serves (``paper-agentic``, ``qwen2-1.5b``).
+serves (``paper-agentic``, ``qwen2-1.5b``, ``mamba2-2.7b``).
 """
 
 from __future__ import annotations

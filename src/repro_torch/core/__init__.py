@@ -1,22 +1,30 @@
 """Host branch substrate of the port: the lifecycle kernel, the paged-KV
-branch manager and the KV tier store, copied from the JAX package's
-``repro.core`` (which cannot be imported without JAX)."""
+branch manager, the KV tier store and the pytree branch store, copied from
+the JAX package's ``repro.core`` (which cannot be imported without JAX)."""
 
 from repro_torch.core.errors import (
     BranchError,
     BranchStateError,
     Errno,
     FrozenOriginError,
+    NoSuchLeafError,
     PoolExhausted,
     StaleBranchError,
 )
 from repro_torch.core.kvbranch import AppendSlot, CowOp, KVBranchManager
 from repro_torch.core.kvtier import KVSnapshot, KVTierStore
-from repro_torch.core.lifecycle import BranchDomain, BranchNode, BranchTree
+from repro_torch.core.lifecycle import (
+    BranchDomain,
+    BranchNode,
+    BranchStatus,
+    BranchTree,
+)
+from repro_torch.core.store import TOMBSTONE, BranchStore, explore
 
 __all__ = [
     "AppendSlot", "BranchDomain", "BranchError", "BranchNode",
-    "BranchStateError", "BranchTree", "CowOp", "Errno",
-    "FrozenOriginError", "KVBranchManager", "KVSnapshot", "KVTierStore",
-    "PoolExhausted", "StaleBranchError",
+    "BranchStateError", "BranchStatus", "BranchStore", "BranchTree",
+    "CowOp", "Errno", "FrozenOriginError", "KVBranchManager", "KVSnapshot",
+    "KVTierStore", "NoSuchLeafError", "PoolExhausted", "StaleBranchError",
+    "TOMBSTONE", "explore",
 ]

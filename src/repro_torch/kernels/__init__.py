@@ -1,9 +1,12 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 * ``paged_attention`` — paged chunk attention (decode, verify, suffix
-  prefill over CoW KV pages), CUDA C++ for sm_90a.
+  prefill over CoW KV pages) and cached-only decode attention (the legacy
+  ``attn_impl="ref"`` step), one CUDA C++ page walk for sm_90a.
 * ``flash_attention`` — causal GQA flash attention forward (dense
   prefill), CUDA C++ for sm_90a.
+* ``ssd_scan`` — the Mamba2 SSD chunked scan (SSM prefill), CUDA C++ for
+  sm_90a.
 
 A wrapper runs its plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches its kernel or raises.

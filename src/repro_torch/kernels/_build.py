@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Every kernel source is one ``csrc/*.cu`` file beside its ``ops.py``, with a
-plain C entry point (no PyTorch headers), compiled for ``sm_90a`` into its
+Every kernel source is one ``csrc/*.cu`` file beside its ``ops.py``, with
+plain C entry points (no PyTorch headers), compiled for ``sm_90a`` into its
 own shared library under ``build/repro_torch_kernels/`` at the repository
 root.  The library name carries a hash of the sources and flags, so an edit
 rebuilds and a stale library is never loaded.  :func:`build_all` starts one
-``nvcc`` per source at once; :func:`library` builds on first use.
+``nvcc`` per source at once; :func:`library` builds on first use and
+:func:`entry` returns one entry point of a library.
 
 Wrappers pass tensors as ``data_ptr()`` integers and the stream as
 ``torch.cuda.current_stream().cuda_stream``; each C entry point returns
@@ -33,6 +34,12 @@ COMMON_INCLUDE = KERNELS_DIR / "csrc"
 SOURCES: Dict[str, str] = {
     "paged_chunk_attention": "paged_attention/csrc/paged_chunk_attention.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
+}
+
+#: entry point -> the library that exports it, where the names differ
+ENTRY_LIBRARY: Dict[str, str] = {
+    "paged_attention": "paged_chunk_attention",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,8 +56,13 @@ ARGTYPES: Dict[str, List[type]] = {
     # k_scales, v_scales, out, part_m, part_l, part_acc, b, t, kv, g, hd,
     # page, max_pages, n_split, bf16, quant, scale, stream
     "paged_chunk_attention": [_P] * 14 + [_I] * 10 + [_F, _P],
+    # q, k_pages, v_pages, block_tables, lengths, out, part_m, part_l,
+    # part_acc, b, kv, g, hd, page, max_pages, n_split, bf16, scale, stream
+    "paged_attention": [_P] * 9 + [_I] * 8 + [_F, _P],
     # q, k, v, out, b, s, h, kv, hd, bf16, scale, stream
     "flash_attention": [_P] * 4 + [_I] * 6 + [_F, _P],
+    # x, dt, A, B, C, y, state, b, s, H, P, N, bf16, stream
+    "ssd_scan": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -113,11 +125,32 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(_target(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        for fn_name in ARGTYPES:
+            if ENTRY_LIBRARY.get(fn_name, fn_name) == name:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = ARGTYPES[fn_name]
+                fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str):
+    """The ctypes function of one entry point, its library built first if
+    needed."""
+    return getattr(library(ENTRY_LIBRARY.get(name, name)), name)
+
+
+def check_tensors(name: str, device, expect: Dict[str, tuple]) -> None:
+    """Raise unless every ``arg: (tensor, shape, dtype)`` of ``expect`` lies
+    on ``device`` with that shape and dtype and is contiguous."""
+    for arg, (x, shape, dtype) in expect.items():
+        if x.device != device:
+            raise ValueError(f"{name}: {arg} on {x.device}, expected {device}")
+        if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
+            raise ValueError(f"{name}: {arg} is {tuple(x.shape)} {x.dtype}, "
+                             f"expected {tuple(shape)} {dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
 
 
 def check_aligned(name: str, **tensors) -> None:

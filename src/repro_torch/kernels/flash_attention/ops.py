@@ -44,7 +44,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                          f"do not match q {tuple(q.shape)}")
     _build.check_aligned(NAME, q=q, k=k, v=v)
     out = torch.empty_like(q)
-    fn = getattr(_build.library(NAME), NAME)
+    fn = _build.entry(NAME)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, h, kv, hd, int(q.dtype == torch.bfloat16),
             1.0 / math.sqrt(hd),

@@ -1,3 +1,6 @@
-from repro_torch.kernels.paged_attention.ops import paged_chunk_attention
+from repro_torch.kernels.paged_attention.ops import (
+    paged_attention,
+    paged_chunk_attention,
+)
 
-__all__ = ["paged_chunk_attention"]
+__all__ = ["paged_attention", "paged_chunk_attention"]

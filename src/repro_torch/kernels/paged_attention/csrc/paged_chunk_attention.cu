@@ -25,6 +25,17 @@
 // Unlike the TPU grid, which walks max_pages sequentially and relies on the
 // table's zero padding, each block walks only pages below ceil(len/page) of
 // its own table row, and rows of length 0 attend only to the chunk.
+//
+// The same walk, instantiated with kChunk = false, is the cached-only decode
+// kernel paged_attention (entry point at the end of this file).  It replaces
+// src/repro/kernels/paged_attention/kernel.py, paged_attention_kernel (body
+// _kernel): one query token per row whose K/V is already in the pool,
+// positions < lengths[b] attended, no page_map and no inline chunk.  It is
+// bounded the same way, by the cached K/V bytes (at qwen2-1.5b's legacy
+// decode step, b = 32 rows of ~1024 cached tokens, ~33.5 MB per layer,
+// ~10 us), and uses the same split walk and combine.  The TPU kernel clamps
+// the softmax sum to 1e-30 and so returns 0 for a row of length 0; here such
+// a row has no visible key, its sum stays 0 and its output is written as 0.
 
 #include "attention_tile.cuh"
 
@@ -37,22 +48,24 @@ constexpr int PCA_ROWS_PER_WARP = 2;
 constexpr int PCA_ROWS = PCA_WARPS * PCA_ROWS_PER_WARP;
 constexpr int COMBINE_WARPS = 4;
 
+// The body of both kernels below, run by a block of PCA_WARPS warps.
 // q/out [b, t, kv, g, HD]; k_new/v_new [b, t, kv, HD];
 // pools [n_pages, page, kv, HD]; block_tables [b, max_pages]; lengths [b];
 // page_map [n_pages]; scales [n_pages, kv] (int8 pools only).
 // With n_split > 1, split z writes part_m/part_l [z][row] and
 // part_acc [z][row][HD] (row = output row index) instead of out.
-template <int HD, typename T, typename PT>
-__global__ void __launch_bounds__(PCA_WARPS * 32)
-paged_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
-                             const T* __restrict__ v_new, const PT* __restrict__ k_pages,
-                             const PT* __restrict__ v_pages, const int* __restrict__ block_tables,
-                             const int* __restrict__ lengths, const int* __restrict__ page_map,
-                             const float* __restrict__ k_scales,
-                             const float* __restrict__ v_scales, T* __restrict__ out,
-                             float* __restrict__ part_m, float* __restrict__ part_l,
-                             float* __restrict__ part_acc, int b_total, int t, int kv, int g,
-                             int page, int max_pages, float scale) {
+// kChunk = false (cached-only decode): t = 1, k_new/v_new/page_map unused,
+// pages read straight from block_tables, and a row with no visible key
+// (length 0) is written as zeros.
+template <int HD, typename T, typename PT, bool kChunk>
+__device__ __forceinline__ void paged_walk(
+    const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
+    const PT* __restrict__ k_pages, const PT* __restrict__ v_pages,
+    const int* __restrict__ block_tables, const int* __restrict__ lengths,
+    const int* __restrict__ page_map, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, T* __restrict__ out, float* __restrict__ part_m,
+    float* __restrict__ part_l, float* __restrict__ part_acc, int b_total, int t, int kv, int g,
+    int page, int max_pages, float scale) {
   constexpr bool kQuant = std::is_same<PT, int8_t>::value;
   constexpr int PV = 16 / sizeof(PT);  // pool elements per 16-byte load
   constexpr int CV = 16 / sizeof(T);   // chunk / q elements per 16-byte load
@@ -104,7 +117,7 @@ paged_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
       int phys = -1;
       float ksc = 1.f, vsc = 1.f;
       if (pos < pos_end) {
-        phys = page_map[table[pos / page]];
+        phys = kChunk ? page_map[table[pos / page]] : table[pos / page];
         if constexpr (kQuant) {
           ksc = k_scales[(size_t)phys * kv + kvh];
           vsc = v_scales[(size_t)phys * kv + kvh];
@@ -139,7 +152,7 @@ paged_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
   // the chunk's own keys, inline and causal (split 0 only); no row of this
   // block sees a chunk key beyond its last row's token
   const int r_last = min(n_rows, row0 + PCA_ROWS) - 1;
-  const int j_end = split == 0 ? min(t, r_last / g + 1) : 0;
+  const int j_end = kChunk && split == 0 ? min(t, r_last / g + 1) : 0;
   for (int j0 = 0; j0 < j_end; j0 += KT) {
     __syncthreads();
     for (int e = threadIdx.x; e < KT * HD / CV; e += nthreads) {
@@ -171,7 +184,12 @@ paged_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
     if (r >= n_rows) continue;
     const size_t row = (((size_t)b * t + r / g) * kv + kvh) * g + r % g;
     if (n_split == 1) {
-      row_store<HD, T>(st[i], out + row * HD);
+      if (!kChunk && st[i].l == 0.f) {  // length 0: no key to attend
+#pragma unroll
+        for (int u = 0; u < HD / 32; ++u) out[row * HD + lane + 32 * u] = from_f32<T>(0.f);
+      } else {
+        row_store<HD, T>(st[i], out + row * HD);
+      }
       continue;
     }
     // partial state; a split with no visible key leaves l = 0
@@ -185,7 +203,41 @@ paged_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_ne
   }
 }
 
-// Merge the splits of each output row: one warp per row.
+#define PCA_ARGS q, k_new, v_new, k_pages, v_pages, block_tables, lengths, page_map, k_scales, \
+                 v_scales, out, part_m, part_l, part_acc, b_total, t, kv, g, page, max_pages, scale
+
+template <int HD, typename T, typename PT>
+__global__ void __launch_bounds__(PCA_WARPS * 32)
+paged_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
+                             const T* __restrict__ v_new, const PT* __restrict__ k_pages,
+                             const PT* __restrict__ v_pages, const int* __restrict__ block_tables,
+                             const int* __restrict__ lengths, const int* __restrict__ page_map,
+                             const float* __restrict__ k_scales,
+                             const float* __restrict__ v_scales, T* __restrict__ out,
+                             float* __restrict__ part_m, float* __restrict__ part_l,
+                             float* __restrict__ part_acc, int b_total, int t, int kv, int g,
+                             int page, int max_pages, float scale) {
+  paged_walk<HD, T, PT, true>(PCA_ARGS);
+}
+
+template <int HD, typename T, typename PT>
+__global__ void __launch_bounds__(PCA_WARPS * 32)
+paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
+                             const T* __restrict__ v_new, const PT* __restrict__ k_pages,
+                             const PT* __restrict__ v_pages, const int* __restrict__ block_tables,
+                             const int* __restrict__ lengths, const int* __restrict__ page_map,
+                             const float* __restrict__ k_scales,
+                             const float* __restrict__ v_scales, T* __restrict__ out,
+                             float* __restrict__ part_m, float* __restrict__ part_l,
+                             float* __restrict__ part_acc, int b_total, int t, int kv, int g,
+                             int page, int max_pages, float scale) {
+  paged_walk<HD, T, PT, false>(PCA_ARGS);
+}
+
+#undef PCA_ARGS
+
+// Merge the splits of each output row: one warp per row.  A row whose
+// splits all saw no key (cached-only decode of a length-0 row) is 0.
 template <int HD, typename T>
 __global__ void __launch_bounds__(COMBINE_WARPS * 32)
 paged_chunk_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
@@ -210,7 +262,7 @@ paged_chunk_combine_kernel(const float* __restrict__ part_m, const float* __rest
   }
 #pragma unroll
   for (int u = 0; u < HD / 32; ++u)
-    out[(size_t)row * HD + lane + 32 * u] = from_f32<T>(acc[u] / l);
+    out[(size_t)row * HD + lane + 32 * u] = from_f32<T>(l > 0.f ? acc[u] / l : 0.f);
 }
 
 struct Args {
@@ -223,10 +275,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int HD, typename T, typename PT>
+template <int HD, typename T, typename PT, bool kChunk = true>
 static void launch(const Args& a) {
   const dim3 grid(a.b * a.kv, (a.t * a.g + PCA_ROWS - 1) / PCA_ROWS, a.n_split);
-  paged_chunk_attention_kernel<HD, T, PT><<<grid, PCA_WARPS * 32, 0, a.stream>>>(
+  auto kernel = paged_chunk_attention_kernel<HD, T, PT>;
+  if constexpr (!kChunk) kernel = paged_attention_kernel<HD, T, PT>;
+  kernel<<<grid, PCA_WARPS * 32, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k_new),
       static_cast<const T*>(a.v_new), static_cast<const PT*>(a.k_pages),
       static_cast<const PT*>(a.v_pages), static_cast<const int*>(a.block_tables),
@@ -275,6 +329,34 @@ extern "C" int paged_chunk_attention(const void* q, const void* k_new, const voi
     case 32: dispatch_dtype<32>(bf16, quant, a); break;
     case 64: dispatch_dtype<64>(bf16, quant, a); break;
     case 128: dispatch_dtype<128>(bf16, quant, a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C entry point of the cached-only decode kernel.  q/out [b, kv, g, hd];
+// pools [n_pages, page, kv, hd] of q's type (bf16 selects __nv_bfloat16,
+// else float); block_tables [b, max_pages]; lengths [b] (the token being
+// decoded included).  n_split > 1 needs the f32 workspaces of
+// paged_chunk_attention with rows = b * kv * g.  Returns cudaGetLastError()
+// after the launches.
+extern "C" int paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                               const void* block_tables, const void* lengths, void* out,
+                               void* part_m, void* part_l, void* part_acc, int b, int kv, int g,
+                               int hd, int page, int max_pages, int n_split, int bf16,
+                               float scale, void* stream) {
+  using namespace repro_torch;
+  const Args a{q, nullptr, nullptr, k_pages, v_pages, block_tables, lengths, nullptr, nullptr,
+               nullptr, out, static_cast<float*>(part_m), static_cast<float*>(part_l),
+               static_cast<float*>(part_acc), b, 1, kv, g, page, max_pages, n_split, scale,
+               static_cast<cudaStream_t>(stream)};
+  switch (hd * 2 + (bf16 ? 1 : 0)) {
+    case 64: launch<32, float, float, false>(a); break;
+    case 65: launch<32, __nv_bfloat16, __nv_bfloat16, false>(a); break;
+    case 128: launch<64, float, float, false>(a); break;
+    case 129: launch<64, __nv_bfloat16, __nv_bfloat16, false>(a); break;
+    case 256: launch<128, float, float, false>(a); break;
+    case 257: launch<128, __nv_bfloat16, __nv_bfloat16, false>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

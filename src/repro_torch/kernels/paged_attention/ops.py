@@ -1,12 +1,17 @@
-"""Paged chunk attention: the wrapper the serving engine calls.
+"""Paged attention: the two wrappers the serving engine calls.
 
-One function serves the fused decode step (t = 1), speculative verify
-(t = k) and the prefix-cache suffix prefill (t = suffix length).  A CPU
-tensor runs the plain version in ``ref.py``; a CUDA tensor launches the
-hand-written kernel in ``csrc/paged_chunk_attention.cu`` or raises — there
-is no fallback on the card.  ``LAUNCHES`` counts kernel launches: two for a
-call whose page walk is split (the attention kernel and the combine kernel
-that merges its splits), one otherwise.
+* :func:`paged_chunk_attention` serves the fused decode step (t = 1),
+  speculative verify (t = k) and the prefix-cache suffix prefill (t =
+  suffix length).
+* :func:`paged_attention` serves the legacy ``attn_impl="ref"`` decode
+  step: cached-only attention, the token's K/V already in the pool.
+
+A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
+the hand-written kernel in ``csrc/paged_chunk_attention.cu`` (one page
+walk, two entry points) or raises — there is no fallback on the card.
+``LAUNCHES`` counts each wrapper's kernel launches apart: two for a call
+whose page walk is split (the attention kernel and the combine kernel that
+merges its splits), one otherwise.
 """
 
 from __future__ import annotations
@@ -18,10 +23,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention.ref import paged_chunk_attention_ref
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref,
+    paged_chunk_attention_ref,
+)
 
 NAME = "paged_chunk_attention"
-LAUNCHES = {NAME: 0}
+CACHED_NAME = "paged_attention"
+LAUNCHES = {NAME: 0, CACHED_NAME: 0}
 HEAD_DIMS = (32, 64, 128)
 ROWS_PER_BLOCK = 8     # PCA_ROWS in the kernel: query rows per block
 MAX_SPLITS = 16
@@ -69,16 +78,24 @@ def _check(q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
             raise ValueError(f"{NAME}: int8 pools need k_scales and v_scales")
         for name, x in (("k_scales", k_scales), ("v_scales", v_scales)):
             expect[name] = (x, (k_pages.shape[0], kv), torch.float32)
-    for name, (x, shape, dtype) in {"q": (q, q.shape, q.dtype),
-                                    **expect}.items():
-        if x.device != q.device:
-            raise ValueError(f"{NAME}: {name} on {x.device}, q on {q.device}")
-        if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
-            raise ValueError(f"{NAME}: {name} is {tuple(x.shape)} {x.dtype}, "
-                             f"expected {tuple(shape)} {dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{NAME}: {name} must be contiguous")
+    _build.check_tensors(NAME, q.device,
+                         {"q": (q, q.shape, q.dtype), **expect})
     return quant
+
+
+def _partials(splits: int, rows: int, hd: int, device: torch.device):
+    """Per-split softmax states (max, sum, accumulator) the combine kernel
+    merges; none for an unsplit walk."""
+    if splits == 1:
+        return None, None, None
+    part_m = torch.empty(splits * rows, dtype=torch.float32, device=device)
+    return (part_m, torch.empty_like(part_m),
+            torch.empty(splits * rows * hd, dtype=torch.float32,
+                        device=device))
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
 
 
 def paged_chunk_attention(
@@ -112,25 +129,74 @@ def paged_chunk_attention(
     b, t, kv, g, hd = q.shape
     out = torch.empty_like(q)
     splits = n_splits(b, t, kv, g, q.device)
-    part_m = part_l = part_acc = None
-    if splits > 1:    # per-split softmax states, merged by the kernel
-        rows = b * t * kv * g
-        part_m = torch.empty(splits * rows, dtype=torch.float32,
-                             device=q.device)
-        part_l = torch.empty_like(part_m)
-        part_acc = torch.empty(splits * rows * hd, dtype=torch.float32,
-                               device=q.device)
-    fn = getattr(_build.library(NAME), NAME)
+    parts = _partials(splits, b * t * kv * g, hd, q.device)
+    fn = _build.entry(NAME)
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             lengths.data_ptr(), page_map.data_ptr(),
             k_scales.data_ptr() if quant else None,
             v_scales.data_ptr() if quant else None, out.data_ptr(),
-            *(x.data_ptr() if x is not None else None
-              for x in (part_m, part_l, part_acc)),
+            *(_ptr(x) for x in parts),
             b, t, kv, g, hd, k_pages.shape[1], block_tables.shape[1], splits,
             int(q.dtype == torch.bfloat16), int(quant), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(NAME, rc)
     LAUNCHES[NAME] += 2 if splits > 1 else 1
+    return out
+
+
+def _check_cached(q, k_pages, v_pages, block_tables, lengths) -> None:
+    """Validate a CUDA call of the cached-only decode kernel."""
+    b, kv, g, hd = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{CACHED_NAME}: q must be float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{CACHED_NAME}: head_dim {hd} not in {HEAD_DIMS}")
+    expect = {
+        "q": (q, tuple(q.shape), q.dtype),
+        "k_pages": (k_pages, (k_pages.shape[0], k_pages.shape[1], kv, hd),
+                    q.dtype),
+        "v_pages": (v_pages, tuple(k_pages.shape), q.dtype),
+        "block_tables": (block_tables, (b, block_tables.shape[-1]),
+                         torch.int32),
+        "lengths": (lengths, (b,), torch.int32),
+    }
+    _build.check_tensors(CACHED_NAME, q.device, expect)
+
+
+def paged_attention(
+    q: torch.Tensor,             # [b, kv, g, hd]
+    k_pages: torch.Tensor,       # [n_pages, page, kv, hd] f32/bf16
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [b, max_pages] int32
+    lengths: torch.Tensor,       # [b] int32, the decoded token included
+) -> torch.Tensor:
+    """Cached-only decode attention over paged KV.  Returns
+    ``[b, kv, g, hd]``; a row of length 0 gives zeros.
+
+    ``lengths[i] <= max_pages * page`` and every table entry below
+    ``ceil(lengths[i] / page)`` is a valid page; entries past that are
+    never read.
+    """
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                   lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"{CACHED_NAME}: no kernel for device {q.device}")
+    _check_cached(q, k_pages, v_pages, block_tables, lengths)
+    b, kv, g, hd = q.shape
+    _build.check_aligned(CACHED_NAME, q=q, k_pages=k_pages, v_pages=v_pages)
+    out = torch.empty_like(q)
+    splits = n_splits(b, 1, kv, g, q.device)
+    parts = _partials(splits, b * kv * g, hd, q.device)
+    fn = _build.entry(CACHED_NAME)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            *(_ptr(x) for x in parts), b, kv, g, hd, k_pages.shape[1],
+            block_tables.shape[1], splits, int(q.dtype == torch.bfloat16),
+            1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(CACHED_NAME, rc)
+    LAUNCHES[CACHED_NAME] += 2 if splits > 1 else 1
     return out

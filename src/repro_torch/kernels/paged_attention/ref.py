@@ -1,10 +1,15 @@
-"""Plain PyTorch version of the paged chunk attention kernel.
+"""Plain PyTorch versions of the two paged attention kernels.
 
-The counterpart of ``paged_chunk_attention_ref`` in the JAX package: a
-dense gather of every sequence's pages through the CoW indirection, the
-optional int8 dequant, then one masked softmax over the cached positions
-and the causal in-chunk block.  The wrapper in ``ops.py`` runs it for CPU
-tensors; on the card it is what the CUDA kernel is held against.
+* :func:`paged_chunk_attention_ref`, the counterpart of the JAX package's
+  ``paged_chunk_attention_ref``: a dense gather of every sequence's pages
+  through the CoW indirection, the optional int8 dequant, then one masked
+  softmax over the cached positions and the causal in-chunk block.
+* :func:`paged_attention_ref`, the counterpart of ``paged_attention_ref``:
+  cached-only decode attention, the token's K/V already in the pool.
+
+Both compute in f32 and round once.  The wrappers in ``ops.py`` run them
+for CPU tensors; on the card they are what the CUDA kernels are held
+against.
 """
 
 from __future__ import annotations
@@ -58,3 +63,26 @@ def paged_chunk_attention_ref(
            + torch.einsum("btkgj,bjkh->btkgh", probs[..., s:],
                           v_new.float()))
     return out.to(q.dtype)
+
+
+def paged_attention_ref(
+    q: torch.Tensor,             # [b, kv, g, hd]
+    k_pages: torch.Tensor,       # [n_pages, page, kv, hd]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [b, max_pages] int32 (padding: any page)
+    lengths: torch.Tensor,       # [b] int32, the decoded token included
+) -> torch.Tensor:
+    """Returns ``[b, kv, g, hd]`` in q's dtype; a row of length 0 is 0
+    (the TPU kernel's clamped softmax sum gives the same)."""
+    b, kv, g, hd = q.shape
+    page = k_pages.shape[1]
+    s = block_tables.shape[1] * page
+    tables = block_tables.long()
+    k = k_pages[tables].float().reshape(b, s, kv, hd)
+    v = v_pages[tables].float().reshape(b, s, kv, hd)
+    sc = torch.einsum("bkgh,bskh->bkgs", q.float(), k) * (1.0 / math.sqrt(hd))
+    pos = torch.arange(s, device=q.device)
+    cached = (pos[None, :] < lengths.long()[:, None])[:, None, None, :]
+    probs = torch.softmax(sc.masked_fill(~cached, float("-inf")), dim=-1)
+    probs = probs.masked_fill(~cached, 0.0)      # length 0: 0, not NaN
+    return torch.einsum("bkgs,bskh->bkgh", probs, v).to(q.dtype)

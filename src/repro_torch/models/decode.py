@@ -1,9 +1,20 @@
-"""Dense prefill of the port: the prompt's logits and per-layer K/V.
+"""Prefill and one-token decode of the port's two families.
 
-Counterpart of the dense branch of ``prefill`` in
-``repro/models/decode.py``.  Attention goes through the flash attention
-kernel (:func:`repro_torch.kernels.flash_attention.flash_attention`),
-where the JAX package computes the same function with jnp.
+Counterparts of ``decode_state_specs``, ``init_decode_state``, ``prefill``
+and ``decode_step`` in ``repro/models/decode.py``:
+
+* dense: the prefill's last-position logits and per-layer K/V.  Attention
+  goes through the flash attention kernel (:func:`repro_torch.kernels.
+  flash_attention.flash_attention`), where the JAX package computes the
+  same function with jnp.  Dense decode runs in the serving engine over
+  paged KV (``runtime/serve_loop.py``), not here.
+* ssm: the prefill returns the decode cache ``{"conv": [L, b, ck-1,
+  conv_dim], "ssm": [L, b, H, N, P] f32}``; its scan is the SSD scan kernel
+  (:func:`repro_torch.kernels.ssd_scan.ssd_scan`), where the JAX package
+  uses the jnp ``ssd_chunked``.  :func:`decode_step` advances the cache by
+  one token **out of place**: it returns new tensors and never writes into
+  the cache it was given, so a cache shared by reference between branches
+  (``BranchStore`` snapshots) is never changed under a sibling.
 """
 
 from __future__ import annotations
@@ -13,21 +24,64 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import embed_tokens, lm_head
+from repro_torch.models.ssm import (
+    _split_proj,
+    _split_xbc,
+    causal_conv1d,
+    mamba_decode_block,
+    softplus_dt,
+)
+from repro_torch.models.transformer import embed_tokens, lm_head, torch_dtype
 
 Params = Dict[str, Any]
 
+
+# ---------------------------------------------------------------------------
+# cache specs
+# ---------------------------------------------------------------------------
+
+def decode_state_specs(cfg: ArchConfig, batch: int, max_len: int
+                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """``{name: (shape, dtype)}`` of an SSM decode cache (``max_len`` is
+    unused: the state does not grow).  Dense decode keeps its KV in the
+    serving engine's pages."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"no decode cache for family {cfg.family}: dense decode runs "
+            "over paged KV in ServeEngine")
+    ck, cdim = cfg.ssm_conv_kernel, cfg.ssm_conv_dim
+    H, N, Pd = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    return {"conv": ((cfg.num_layers, batch, ck - 1, cdim), torch_dtype(cfg)),
+            "ssm": ((cfg.num_layers, batch, H, N, Pd), torch.float32)}
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                      device: Any = None) -> Dict[str, torch.Tensor]:
+    """A zero SSM decode cache on ``device`` (``cuda`` unless given)."""
+    device = resolve_device(device)
+    return {k: torch.zeros(shape, dtype=dtype, device=device)
+            for k, (shape, dtype)
+            in decode_state_specs(cfg, batch, max_len).items()}
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
 
 def prefill(cfg: ArchConfig, p: Params, tokens: torch.Tensor, *,
             max_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens [b, s] -> (last-position logits [b, 1, V], cache).
 
-    The cache holds ``"k"``/``"v"`` as ``[L, b, max_len, kv, hd]``,
-    zero past ``s``.
+    Dense: the cache holds ``"k"``/``"v"`` as ``[L, b, max_len, kv, hd]``,
+    zero past ``s``.  SSM: ``"conv"``/``"ssm"`` (``max_len`` unused).
     """
+    if cfg.family == "ssm":
+        return _ssm_prefill(cfg, p, tokens)
     b, s = tokens.shape
     max_len = max_len or s
     if max_len < s:
@@ -49,3 +103,75 @@ def prefill(cfg: ArchConfig, p: Params, tokens: torch.Tensor, *,
         cache["v"][i, :, :s] = v
     h = L.rms_norm(h[:, -1:], p["final_norm"], cfg.norm_eps)
     return lm_head(cfg, p, h), cache
+
+
+def _ssm_prefill(cfg: ArchConfig, p: Params, tokens: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    s = tokens.shape[1]
+    if s < cfg.ssm_conv_kernel - 1:
+        # the conv state is the last ck - 1 inputs; a shorter prompt would
+        # give a state of the wrong shape (the JAX package does not check)
+        raise ValueError(f"an SSM prompt needs at least "
+                         f"{cfg.ssm_conv_kernel - 1} tokens, got {s}")
+    h = embed_tokens(cfg, p, tokens)
+    convs, ssms = [], []
+    for i in range(cfg.num_layers):
+        lp = L.layer_params(p["layers"], i)
+        x = L.rms_norm(h, lp["ln"], cfg.norm_eps)
+        y, conv, ssm = _mamba_prefill(cfg, lp["mamba"], x)
+        h = h + y
+        convs.append(conv)
+        ssms.append(ssm)
+    h = L.rms_norm(h[:, -1:], p["final_norm"], cfg.norm_eps)
+    return lm_head(cfg, p, h), {"conv": torch.stack(convs),
+                                "ssm": torch.stack(ssms)}
+
+
+def _mamba_prefill(cfg: ArchConfig, lp: Params, x: torch.Tensor):
+    """Mamba block over the prompt, also returning (conv_state,
+    ssm_state); the scan is the SSD scan kernel."""
+    b, s, _ = x.shape
+    di, H, Pd = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    ck = cfg.ssm_conv_kernel
+    z, xBC_pre, dt = _split_proj(cfg, x @ lp["in_proj"])
+    # conv state = the last ck - 1 *pre-activation* conv inputs
+    conv_state = xBC_pre[:, s - (ck - 1):, :].contiguous()
+    xBC = causal_conv1d(xBC_pre, lp["conv_w"], lp["conv_b"])
+    xs, B, C = _split_xbc(cfg, xBC)
+    xs = xs.reshape(b, s, H, Pd).contiguous()
+    A = -torch.exp(lp["A_log"])
+    y, ssm_state = ssd_scan(xs, softplus_dt(dt, lp["dt_bias"]).contiguous(),
+                            A, B.contiguous(), C.contiguous(), cfg.ssm_chunk)
+    y = y + lp["D"].to(y.dtype)[None, None, :, None] * xs
+    y = L.gated_rms_norm(y.reshape(b, s, di), z, lp["norm_w"], cfg.norm_eps)
+    return y @ lp["out_proj"], conv_state, ssm_state
+
+
+# ---------------------------------------------------------------------------
+# decode step
+# ---------------------------------------------------------------------------
+
+def decode_step(cfg: ArchConfig, p: Params, cache: Dict[str, torch.Tensor],
+                tokens: torch.Tensor, pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One new token for every sequence of an SSM cache; returns (logits
+    [b, 1, V], a new cache).  ``tokens`` [b, 1]; ``pos`` [b] is unused by
+    the recurrence (kept for the JAX signature).  Out of place."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            "dense decode runs over paged KV in ServeEngine")
+    h = embed_tokens(cfg, p, tokens)
+    new_cache = dict(cache)
+    # fresh tensors, filled layer by layer: the input cache is only read
+    new_cache["conv"] = torch.empty_like(cache["conv"])
+    new_cache["ssm"] = torch.empty_like(cache["ssm"])
+    for i in range(cfg.num_layers):
+        lp = L.layer_params(p["layers"], i)
+        x = L.rms_norm(h, lp["ln"], cfg.norm_eps)
+        y, conv, ssm = mamba_decode_block(cfg, lp["mamba"], x,
+                                          cache["conv"][i], cache["ssm"][i])
+        new_cache["conv"][i] = conv
+        new_cache["ssm"][i] = ssm
+        h = h + y
+    h = L.rms_norm(h, p["final_norm"], cfg.norm_eps)
+    return lm_head(cfg, p, h), new_cache

@@ -54,6 +54,15 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
     return (xf * weight.float()).to(x.dtype)
 
 
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """Mamba2's output norm: RMSNorm(x * silu(z)), in f32, rounded once."""
+    xf = x.float() * F.silu(z.float())
+    var = xf.square().mean(dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    return (xf * weight.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embedding (split-half rotation)
 # ---------------------------------------------------------------------------

@@ -29,3 +29,13 @@ class Model:
                 max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         return D.prefill(self.cfg, params, tokens, max_len=max_len)
+
+    def decode_step(self, params: Params, cache: Dict[str, torch.Tensor],
+                    tokens: torch.Tensor, pos: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One token per sequence of an SSM cache, out of place."""
+        return D.decode_step(self.cfg, params, cache, tokens, pos)
+
+    def init_decode_state(self, batch: int, max_len: int,
+                          device: Any = None) -> Dict[str, torch.Tensor]:
+        return D.init_decode_state(self.cfg, batch, max_len, device)

@@ -1,8 +1,9 @@
-"""Dense-family parameters, embedding and output head of the port.
+"""Parameters, embedding and output head of the port's two families.
 
-Counterparts of ``init_transformer`` (dense branch), ``embed_tokens`` and
-``lm_head`` in ``repro/models/transformer.py``.  Parameters are a plain
-dict of tensors in the JAX package's layout, layers stacked ``[L, ...]``.
+Counterparts of ``init_transformer`` (dense and ssm branches),
+``embed_tokens`` and ``lm_head`` in ``repro/models/transformer.py``.
+Parameters are a plain dict of tensors in the JAX package's layout, layers
+stacked ``[L, ...]``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.ssm import init_mamba
 
 Params = Dict[str, Any]
 
@@ -24,17 +26,24 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_servable(cfg: ArchConfig) -> None:
-    """The port serves the single-codebook, swiglu dense family only."""
+    """The port serves the single-codebook swiglu dense family and the
+    attention-free SSM (Mamba2) family."""
+    if cfg.family == "ssm" and cfg.ssm_groups == 1:
+        return
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name} (hybrid): the shared-attention hybrid family is "
+            "not ported yet (ROADMAP queue 1, the hybrid family)")
     if (cfg.family != "dense" or cfg.is_moe or cfg.num_codebooks > 1
             or cfg.frontend != "none" or cfg.mlp_activation != "swiglu"):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}, {cfg.mlp_activation}): the port "
-            "serves the swiglu dense family; MoE, VLM, audio and SSM/hybrid "
-            "are ROADMAP queue 1, items 9-10")
+            "serves the swiglu dense family and the SSM family; MoE, VLM "
+            "and audio are ROADMAP queue 1")
 
 
 def init_transformer(cfg: ArchConfig, gen: torch.Generator) -> Params:
-    """Random dense-family weights drawn from ``gen`` on its device."""
+    """Random weights drawn from ``gen`` on its device."""
     check_servable(cfg)
     dtype = torch_dtype(cfg)
     dev = gen.device
@@ -43,6 +52,12 @@ def init_transformer(cfg: ArchConfig, gen: torch.Generator) -> Params:
                                        fan_in=d)}
     layers = []
     for _ in range(n):
+        if cfg.family == "ssm":
+            layers.append({
+                "ln": torch.ones((d,), dtype=dtype, device=dev),
+                "mamba": init_mamba(cfg, gen, dtype),
+            })
+            continue
         layers.append({
             "ln1": torch.ones((d,), dtype=dtype, device=dev),
             "ln2": torch.ones((d,), dtype=dtype, device=dev),

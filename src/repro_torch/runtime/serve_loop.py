@@ -1,7 +1,6 @@
 """ServeEngine — branchable paged-KV serving on one CUDA device.
 
-The PyTorch counterpart of ``repro/runtime/serve_loop.py``, single device,
-fused path only:
+The PyTorch counterpart of ``repro/runtime/serve_loop.py``, single device:
 
 * KV lives in fixed-size **pages** (``[L, n_pages, page, kv, hd]`` pools);
   sequences hold block tables managed by :class:`KVBranchManager`.
@@ -12,24 +11,27 @@ fused path only:
   pool through ``page_map`` (a faulted dst reads its src) with the fresh
   token's K/V inline, and only then are the page copies and the token's
   slot write applied, layer by layer.
+* ``attn_impl="ref"`` keeps the legacy two-dispatch step instead: the
+  step's CoW faults are serviced first as one batched page copy (counted
+  in ``cow_dispatches``), then per layer the token's K/V is written into
+  its slot and cached-only attention reads ``lengths + 1`` positions.
 * ``spec_verify`` scores k draft tokens per row in one pass over a shared
   block table; a prefix-cache hit prefills only the uncovered suffix.
 * ``commit`` resolves first-commit-wins; ``checkpoint``/``restore`` move a
   branch's pages to the host tier and back.
 * ``kv_dtype="int8"`` stores int8 pools with per-page/per-kv-head scales.
 
-Attention on this path is :func:`repro_torch.kernels.paged_attention.
-paged_chunk_attention` (decode, verify, suffix prefill) and, through the
-model's dense prefill, :func:`repro_torch.kernels.flash_attention.
-flash_attention`: hand-written CUDA kernels on the card, their plain
-versions for CPU tensors.
+Attention is :func:`repro_torch.kernels.paged_attention.
+paged_chunk_attention` (fused decode, verify, suffix prefill — on both
+paths), :func:`repro_torch.kernels.paged_attention.paged_attention` (the
+legacy decode step) and, through the model's dense prefill,
+:func:`repro_torch.kernels.flash_attention.flash_attention`: hand-written
+CUDA kernels on the card, their plain versions for CPU tensors.
 
 Unlike the JAX engine, which returns new pool arrays from every jitted
 step, this engine **updates its pools in place** (indexed writes into
-``k_pages``/``v_pages`` and the scales).  Not in this slice: ``tp=``/
-``mesh=`` (ROADMAP queue 1, item 13) and the legacy two-dispatch
-``attn_impl="ref"`` path with its cached-only kernel (ROADMAP queue 2,
-K3); both raise ``NotImplementedError``.
+``k_pages``/``v_pages`` and the scales).  Not ported yet: ``tp=``/
+``mesh=`` (ROADMAP, multi-GPU), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,24 +45,17 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import KVBranchManager
 from repro_torch.core.kvtier import KVSnapshot, KVTierStore
-from repro_torch.kernels.paged_attention import paged_chunk_attention
+from repro_torch.device import resolve_device
+from repro_torch.kernels.paged_attention import (
+    paged_attention,
+    paged_chunk_attention,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import embed_tokens, lm_head, torch_dtype
 from repro_torch.obs import ENGINE_TRACK, Observability
 
 Pools = List[Optional[torch.Tensor]]   # [k_pages, v_pages, k_scales, v_scales]
-
-
-def resolve_device(device: Any = None) -> torch.device:
-    """``cuda`` unless the caller names a device; no silent CPU fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the card; pass "
-                "device='cpu' explicitly to run its plain versions")
-        device = "cuda"
-    return torch.device(device)
 
 
 def params_to(params: Any, device: torch.device) -> Any:
@@ -195,16 +190,15 @@ class ServeEngine:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh=/tp=) is not ported yet: "
                 "ROADMAP queue 1, item 13 (multi-GPU)")
-        if attn_impl == "ref":
-            raise NotImplementedError(
-                "attn_impl='ref' (the legacy two-dispatch path through the "
-                "cached-only paged_attention kernel) is not ported yet: "
-                "ROADMAP queue 2, K3")
-        if attn_impl != "auto":
+        if attn_impl not in ("auto", "ref"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None or 'int8', "
                              f"got {kv_dtype!r}")
+        if kv_dtype == "int8" and attn_impl == "ref":
+            raise ValueError(
+                "kv_dtype='int8' requires the fused decode path "
+                "(attn_impl 'auto'); the legacy 'ref' gather is fp-only")
         cfg = model.cfg
         self.model = model
         self.cfg: ArchConfig = cfg
@@ -213,7 +207,9 @@ class ServeEngine:
         self._layers = [L.layer_params(self.params["layers"], i)
                         for i in range(cfg.num_layers)]
         self.tp = 1
-        self.attn_impl = "fused"
+        # "auto" is the fused one-launch step; "ref" the legacy step
+        self.fast_path = attn_impl == "auto"
+        self.attn_impl = "fused" if self.fast_path else "ref"
         self.kv_dtype = kv_dtype
         self.quantized = kv_dtype == "int8"
         # sampling noise for decode(greedy=False) without a generator
@@ -357,6 +353,32 @@ class ServeEngine:
             else:
                 self.k_pages[i][slot_pages, slot_offsets] = k[:, 0]
                 self.v_pages[i][slot_pages, slot_offsets] = v[:, 0]
+            h = self._mlp(lp, h)
+        h = L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+        return lm_head(cfg, self.params, h)[:, 0]
+
+    def _legacy_decode_step(self, bt: torch.Tensor, lengths: torch.Tensor,
+                            slot_pages: torch.Tensor,
+                            slot_offsets: torch.Tensor, tokens: torch.Tensor
+                            ) -> torch.Tensor:
+        """The legacy decode step (``attn_impl="ref"``), CoW faults already
+        serviced; returns logits ``[b, V]``.  Per layer the token's K/V is
+        written into its slot first, then cached-only attention reads the
+        ``lengths + 1`` positions that now include it."""
+        cfg = self.cfg
+        b = tokens.shape[0]
+        h = embed_tokens(cfg, self.params, tokens)
+        for i, lp in enumerate(self._layers):
+            x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+            q, k, v = L.qkv_project(cfg, lp["attn"], x, lengths[:, None])
+            self.k_pages[i][slot_pages, slot_offsets] = k[:, 0]
+            self.v_pages[i][slot_pages, slot_offsets] = v[:, 0]
+            kvh = k.shape[2]
+            qh = q.reshape(b, kvh, q.shape[2] // kvh, cfg.head_dim)
+            a = paged_attention(qh, self.k_pages[i], self.v_pages[i], bt,
+                                lengths + 1)
+            h = h + L.attn_out(a.reshape(b, 1, -1, cfg.head_dim),
+                               lp["attn"]["wo"])
             h = self._mlp(lp, h)
         h = L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)
         return lm_head(cfg, self.params, h)[:, 0]
@@ -614,20 +636,26 @@ class ServeEngine:
         slots = [sl[0] for sl in slot_lists]
         cow_src = [c.src_page for sl in slots for c in sl.cow]
         cow_dst = [c.dst_page for sl in slots for c in sl.cow]
+        if not self.fast_path:
+            # legacy path: the faults are their own dispatch, first
+            self._service_cow(cow_src, cow_dst)
         bt, _ = self.kv.dense_block_tables(seq_ids, self.max_pages)
         last = [self.token_domain.get(s)[-1] for s in seq_ids]
-        cs, cd = _pad_pow2(cow_src, cow_dst, self.device)
-        if cow_src:
-            self._c_cow_faults.inc(len(cow_src))
-            self._c_cow_inline_steps.inc()
-        logits = self._fused_decode_step(
+        step_args = (
             self._ints(bt), self._ints(lengths_before),
             torch.tensor([sl.page for sl in slots], dtype=torch.int64,
                          device=self.device),
             torch.tensor([sl.offset for sl in slots], dtype=torch.int64,
                          device=self.device),
-            torch.tensor(last, dtype=torch.int64, device=self.device)[:, None],
-            cs, cd)
+            torch.tensor(last, dtype=torch.int64, device=self.device)[:, None])
+        if self.fast_path:
+            cs, cd = _pad_pow2(cow_src, cow_dst, self.device)
+            if cow_src:
+                self._c_cow_faults.inc(len(cow_src))
+                self._c_cow_inline_steps.inc()
+            logits = self._fused_decode_step(*step_args, cs, cd)
+        else:
+            logits = self._legacy_decode_step(*step_args)
         nxt = logits.argmax(dim=-1)
         if not all(greedy_row):
             gen = self.generator if generator is None else generator

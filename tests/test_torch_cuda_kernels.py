@@ -12,14 +12,23 @@ order only (2e-5) and bfloat16 outputs by at most one ulp of the value
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import reduced
+from repro_torch.core import BranchStore
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
-from repro_torch.kernels.paged_attention.ref import paged_chunk_attention_ref
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref,
+    paged_chunk_attention_ref,
+)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.models import Model
 from repro_torch.runtime import ServeEngine
 
@@ -139,3 +148,101 @@ def test_engine_on_the_card_matches_the_cpu(gen):
         toks += eng.spec_verify(kids[0], [[1, 2, 3]])[0]
         out[dev] = toks
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd,g", [(32, 2), (128, 6)], ids=str)
+def test_paged_attention_kernel(gen, hd, g, dtype):
+    # cached-only decode: ragged lengths, a zero-length row (zeros, not
+    # NaN), a full last page; split or not as the wrapper decides
+    lengths = [0, 1, 16, 700, 1055, 333]
+    case = paged_case(gen, 6, 1, 2, g, hd, 16, lengths, dtype, False)
+    args = dict(q=case["q"][:, 0].contiguous(), k_pages=case["k_pages"],
+                v_pages=case["v_pages"], block_tables=case["block_tables"],
+                lengths=case["lengths"])
+    split = paged_ops.n_splits(6, 1, 2, g, torch.device("cuda")) > 1
+    before = paged_ops.LAUNCHES[paged_ops.CACHED_NAME]
+    out = paged_ops.paged_attention(**args)
+    torch.cuda.synchronize()
+    assert paged_ops.LAUNCHES[paged_ops.CACHED_NAME] == before + 1 + split
+    assert not out[0].any()
+    torch.testing.assert_close(out.float(),
+                               paged_attention_ref(**args).float(),
+                               **TOL[dtype])
+
+
+def ssd_case(gen, b, s, H, P, N, dtype):
+    """SSD scan inputs at the model's scales: x, B and C after the conv's
+    SiLU, dt after softplus with init_mamba's dt_bias, A from its A_log."""
+    rand = lambda *shape: torch.randn(shape, generator=gen,  # noqa
+                                      device="cuda")
+    dt_bias = torch.log(torch.expm1(torch.logspace(-3, -1, H,
+                                                   device="cuda")))
+    return (F.silu(rand(b, s, H, P)).to(dtype),
+            F.softplus(rand(b, s, H) + dt_bias),
+            -torch.linspace(1.0, 16.0, H, device="cuda"),
+            F.silu(rand(b, s, N)).to(dtype), F.silu(rand(b, s, N)).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,P", [(64, 64), (128, 64), (128, 128)], ids=str)
+@pytest.mark.parametrize("s", [1, 127, 1001, 4096])
+def test_ssd_scan_kernel(gen, s, N, P, dtype):
+    x, dt, A, B, C = ssd_case(gen, 1 if s == 4096 else 2, s, 6, P, N, dtype)
+    before = ssd_ops.LAUNCHES[ssd_ops.NAME]
+    y, state = ssd_ops.ssd_scan(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES[ssd_ops.NAME] == before + 1
+    y_ref, state_ref = ssd_scan_ref(x, dt, A, B, C)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), **TOL[dtype])
+    torch.testing.assert_close(state, state_ref, **TOL[torch.float32])
+
+
+def test_ssd_scan_raises_instead_of_falling_back(gen):
+    x, dt, A, B, C = ssd_case(gen, 1, 8, 2, 64, 32, torch.float32)
+    with pytest.raises(ValueError, match="state dim"):
+        ssd_ops.ssd_scan(x, dt, A, B, C)
+
+
+def test_ssm_branching_on_the_card_matches_the_cpu(gen):
+    """Prefill through K4, a 3-way fork, batched decode and a commit, on
+    the card and on the CPU from one set of f32 weights."""
+    cfg = dataclasses.replace(reduced(get_config("mamba2-2.7b")),
+                              dtype="float32", ssm_state=64,
+                              ssm_head_dim=64, num_layers=2)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 150))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        logits, cache = model.prefill(p, torch.from_numpy(prompt).to(dev))
+        store = BranchStore()
+        store.snapshot_pytree(store.ROOT, cache)
+        kids = store.fork(store.ROOT, 3)
+        toks = [[t] for t in logits[0, -1].topk(3).indices.tolist()]
+        for _ in range(4):
+            batch = [store.restore_pytree(k, cache) for k in kids]
+            c = {n: torch.cat([b[n] for b in batch], dim=1) for n in cache}
+            logits, c = model.decode_step(
+                p, c, torch.tensor([[t[-1]] for t in toks], device=dev),
+                torch.zeros(3, device=dev))
+            for i, k in enumerate(kids):
+                store.write_many(k, store.flatten_pytree(
+                    {n: v[:, i:i + 1].clone() for n, v in c.items()}))
+                toks[i].append(int(logits[i, -1].argmax()))
+        store.commit(kids[1])
+        out[dev] = (toks, store.restore_pytree(store.ROOT, cache))
+    assert out["cuda"][0] == out["cpu"][0]
+    for n in ("conv", "ssm"):
+        torch.testing.assert_close(out["cuda"][1][n].cpu(), out["cpu"][1][n],
+                                   atol=1e-4, rtol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

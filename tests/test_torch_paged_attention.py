@@ -1,5 +1,6 @@
-"""Port parity: paged chunk attention (the plain PyTorch version) against
-the JAX package's Pallas kernel in interpret mode and its jnp oracle.
+"""Port parity: paged chunk attention and cached-only paged decode
+attention (the plain PyTorch versions) against the JAX package's Pallas
+kernels in interpret mode and their jnp oracles.
 
 Inputs are drawn with numpy from a seed and handed to both packages.
 Block tables come from one permutation of the pool, so no two rows share
@@ -15,10 +16,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels.paged_attention.kernel import paged_chunk_attention_kernel
+from repro.kernels.paged_attention.kernel import (
+    paged_attention_kernel,
+    paged_chunk_attention_kernel,
+)
+from repro.kernels.paged_attention.ref import paged_attention_ref as jcached
 from repro.kernels.paged_attention.ref import paged_chunk_attention_ref as jref
 from repro_torch.kernels.paged_attention import ops
-from repro_torch.kernels.paged_attention.ref import paged_chunk_attention_ref
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref,
+    paged_chunk_attention_ref,
+)
 
 TOL = 2e-5
 
@@ -171,3 +179,115 @@ def test_wrapper_validation_rejects_what_the_kernel_cannot_take():
                    .transpose(2, 3))
     with pytest.raises(ValueError, match="contiguous"):
         ops._check(**strided, k_scales=None, v_scales=None)
+
+
+# ---------------------------------------------------------------------------
+# cached-only decode attention (the legacy attn_impl="ref" step)
+# ---------------------------------------------------------------------------
+
+def cached_case(seed, b, kv, g, hd, page, max_pages, lengths=None):
+    """Disjoint pages across rows (one permutation of the pool); ragged
+    lengths from 1 to the full table unless given."""
+    rng = np.random.default_rng(seed)
+    n_pages = b * max_pages + 3
+    f = np.float32
+    if lengths is None:
+        lengths = rng.integers(1, max_pages * page + 1, b)
+    return {
+        "q": rng.standard_normal((b, kv, g, hd)).astype(f),
+        "k_pages": rng.standard_normal((n_pages, page, kv, hd)).astype(f),
+        "v_pages": rng.standard_normal((n_pages, page, kv, hd)).astype(f),
+        "block_tables": rng.permutation(n_pages)[:b * max_pages]
+        .reshape(b, max_pages).astype(np.int32),
+        "lengths": np.asarray(lengths, np.int32),
+    }
+
+
+def run_port_cached(case):
+    return paged_attention_ref(
+        **{k: torch.from_numpy(v) for k, v in case.items()}).numpy()
+
+
+def run_jax_cached(case, *, interpret):
+    args = [jnp.asarray(case[k]) for k in
+            ("q", "k_pages", "v_pages", "block_tables", "lengths")]
+    if interpret:
+        return np.asarray(paged_attention_kernel(*args, interpret=True))
+    return np.asarray(jax.jit(jcached)(*args))
+
+
+# b, kv, g, hd, page, max_pages: the sweep of
+# tests/kernels/test_paged_attention.py (f32), plus hd 32 (paper-agentic)
+CACHED_SWEEP = [(1, 1, 1, 128, 8, 4), (2, 2, 4, 128, 16, 8),
+                (3, 4, 2, 64, 8, 5), (2, 1, 8, 128, 8, 6),
+                (3, 2, 2, 32, 4, 6)]
+
+
+@pytest.mark.parametrize("interpret", [False, True], ids=["oracle", "kernel"])
+@pytest.mark.parametrize("b,kv,g,hd,page,max_pages", CACHED_SWEEP, ids=str)
+def test_cached_matches_jax(b, kv, g, hd, page, max_pages, interpret):
+    case = cached_case(b * 100 + hd + page, b, kv, g, hd, page, max_pages)
+    np.testing.assert_allclose(run_port_cached(case),
+                               run_jax_cached(case, interpret=interpret),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("interpret", [False, True], ids=["oracle", "kernel"])
+def test_cached_length_one_and_full_pool(interpret):
+    """Length 1 attends to its one cached token (output = its v); a full
+    table attends to every slot (tests/kernels/test_paged_attention.py
+    :71 and :85)."""
+    one = cached_case(21, 2, 2, 2, 64, 8, 4, lengths=[1, 1])
+    out = run_port_cached(one)
+    np.testing.assert_allclose(out, run_jax_cached(one, interpret=interpret),
+                               rtol=TOL, atol=TOL)
+    v0 = one["v_pages"][one["block_tables"][:, 0], 0]       # [b, kv, hd]
+    np.testing.assert_allclose(out[:, :, 0], v0, rtol=TOL, atol=TOL)
+    full = cached_case(22, 2, 1, 4, 128, 8, 8, lengths=[64, 64])
+    np.testing.assert_allclose(run_port_cached(full),
+                               run_jax_cached(full, interpret=interpret),
+                               rtol=TOL, atol=TOL)
+
+
+def test_cached_zero_length_row_is_zero():
+    """The TPU kernel clamps the softmax sum and returns 0 for a row of
+    length 0; the plain version gives 0 too, not NaN."""
+    case = cached_case(23, 3, 2, 2, 32, 4, 3, lengths=[0, 5, 12])
+    out = run_port_cached(case)
+    assert np.isfinite(out).all() and not out[0].any()
+    np.testing.assert_allclose(
+        out, run_jax_cached(case, interpret=True), rtol=TOL, atol=TOL)
+
+
+def test_cached_equals_chunk_attention_of_the_last_token():
+    """Cached-only attention over lengths + 1 with the token in its slot is
+    chunk attention (t = 1) over lengths with the token inline."""
+    case = cached_case(24, 3, 2, 3, 32, 4, 4, lengths=[1, 7, 16])
+    t = {k: torch.from_numpy(v) for k, v in case.items()}
+    rows = torch.arange(3)
+    last = t["lengths"].long() - 1
+    slot = t["block_tables"][rows, last // 4].long()
+    k_tok = t["k_pages"][slot, last % 4]                  # [b, kv, hd]
+    v_tok = t["v_pages"][slot, last % 4]
+    chunk = paged_chunk_attention_ref(
+        t["q"][:, None], k_tok[:, None], v_tok[:, None], t["k_pages"],
+        t["v_pages"], t["block_tables"], t["lengths"] - 1)
+    np.testing.assert_allclose(run_port_cached(case), chunk[:, 0].numpy(),
+                               rtol=TOL, atol=TOL)
+
+
+def test_cached_wrapper_on_cpu_and_its_validation():
+    case = {k: torch.from_numpy(v) for k, v in
+            cached_case(25, 2, 2, 2, 32, 4, 3).items()}
+    before = ops.LAUNCHES[ops.CACHED_NAME]
+    out = ops.paged_attention(**case)
+    np.testing.assert_array_equal(out.numpy(),
+                                  paged_attention_ref(**case).numpy())
+    assert ops.LAUNCHES[ops.CACHED_NAME] == before
+    ops._check_cached(**case)                              # well formed
+    with pytest.raises(ValueError, match="head_dim"):
+        ops._check_cached(**dict(case, q=torch.zeros(2, 2, 2, 48)))
+    with pytest.raises(ValueError, match="lengths"):
+        ops._check_cached(**dict(case, lengths=case["lengths"].long()))
+    with pytest.raises(ValueError, match="k_pages"):
+        ops._check_cached(**dict(case, k_pages=case["k_pages"].double()))

@@ -8,7 +8,10 @@ fused step with the chunk kernel's jnp oracle).  Greedy runs must give
 identical tokens and identical fault/dispatch counters; step logits agree
 within 1e-4 (float32 on both sides, different summation orders through
 four layers).  Sampled runs use different random streams in the two
-packages, so they are held on structure: a drained pool.
+packages, so they are held on structure: a drained pool.  The legacy
+``attn_impl="ref"`` step (CoW copies as their own dispatch, then the
+token's K/V in its slot and cached-only attention) is held against the
+JAX engine's ``"ref"`` path and against the port's own fused path.
 """
 
 import dataclasses
@@ -41,14 +44,18 @@ def setup():
     return jmodel, jparams, Model(pcfg), pparams
 
 
-def engines(setup, **kw):
+def engines(setup, *, legacy=False, **kw):
+    """The JAX and the port engine on one set of weights: the fused paths,
+    or with ``legacy`` both ``attn_impl="ref"`` paths."""
     jmodel, jparams, pmodel, pparams = setup
     kw.setdefault("num_pages", 128)
     kw.setdefault("page_size", 4)
     kw.setdefault("max_pages_per_seq", 16)
-    return (jax_serve.ServeEngine(jmodel, jparams, attn_impl="fused_ref",
-                                  **kw),
-            ServeEngine(pmodel, pparams, device="cpu", **kw))
+    return (jax_serve.ServeEngine(
+                jmodel, jparams, attn_impl="ref" if legacy else "fused_ref",
+                **kw),
+            ServeEngine(pmodel, pparams, device="cpu",
+                        attn_impl="ref" if legacy else "auto", **kw))
 
 
 def exercise(eng, prompt=PROMPT):
@@ -231,12 +238,72 @@ def test_no_device_and_no_cuda_raises(setup, monkeypatch):
 
 def test_paths_outside_this_slice_raise(setup):
     _, _, pmodel, pparams = setup
-    with pytest.raises(NotImplementedError, match="K3"):
-        ServeEngine(pmodel, pparams, device="cpu", attn_impl="ref")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ServeEngine(pmodel, pparams, device="cpu", tp=2)
     with pytest.raises(ValueError):
         ServeEngine(pmodel, pparams, device="cpu", kv_dtype="int4")
+    with pytest.raises(ValueError, match="attn_impl"):
+        ServeEngine(pmodel, pparams, device="cpu", attn_impl="pallas")
+
+
+def test_legacy_ref_path_matches_the_reference_ref_path(setup):
+    """Same greedy tokens and CoW counters as the JAX engine's "ref" path:
+    faults are serviced as their own dispatches, none ride a step."""
+    jeng, peng = engines(setup, legacy=True)
+    jt, jsid = exercise(jeng)
+    pt, psid = exercise(peng)
+    assert pt == jt
+    assert peng.cow_faults == jeng.cow_faults > 0
+    assert peng.cow_dispatches == jeng.cow_dispatches > 0
+    assert peng.cow_inline_steps == jeng.cow_inline_steps == 0
+    for _ in range(4):
+        assert peng.decode([psid]) == jeng.decode([jsid])
+    same_stats(jeng, peng)
+    assert peng.stats()["attn_impl"] == "ref"
+
+
+def test_legacy_ref_path_equals_the_fused_path(setup):
+    _, legacy = engines(setup, legacy=True)
+    _, fused = engines(setup)
+    assert exercise(legacy)[0] == exercise(fused)[0]
+    assert legacy.cow_faults == fused.cow_faults
+    assert fused.cow_dispatches == 0 and legacy.cow_inline_steps == 0
+
+
+def test_legacy_ref_step_logits_match(setup, monkeypatch):
+    captured = {"jax": [], "port": []}
+    jax_step = jax_serve.paged_decode_step
+
+    def jax_spy(*args, **kw):
+        out = jax_step(*args, **kw)
+        captured["jax"].append(np.asarray(out[0][:, 0]))
+        return out
+
+    port_step = ServeEngine._legacy_decode_step
+
+    def port_spy(self, *args):
+        logits = port_step(self, *args)
+        captured["port"].append(logits.numpy().copy())
+        return logits
+
+    monkeypatch.setattr(jax_serve, "paged_decode_step", jax_spy)
+    monkeypatch.setattr(ServeEngine, "_legacy_decode_step", port_spy)
+    jeng, peng = engines(setup, legacy=True)
+    exercise(jeng)
+    exercise(peng)
+    assert len(captured["port"]) == len(captured["jax"]) == 5
+    for p, j in zip(captured["port"], captured["jax"]):
+        np.testing.assert_allclose(p, j, rtol=TOL, atol=TOL)
+
+
+def test_int8_pools_refuse_the_legacy_path(setup):
+    jmodel, jparams, pmodel, pparams = setup
+    with pytest.raises(ValueError, match="int8"):
+        jax_serve.ServeEngine(jmodel, jparams, attn_impl="ref",
+                              kv_dtype="int8")
+    with pytest.raises(ValueError, match="int8"):
+        ServeEngine(pmodel, pparams, device="cpu", attn_impl="ref",
+                    kv_dtype="int8")
 
 
 def test_pad_pow2():
