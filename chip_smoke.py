@@ -9,7 +9,10 @@ Phases (any failure exits non-zero; nothing is caught into success):
 
 1. the card's name and power limit, torch and CUDA versions, and the build
    of every kernel from ``src/repro_torch/kernels/**/csrc`` with ``nvcc``
-   (one process per source, all at once);
+   (one process per source, all at once), with ptxas's registers and spills
+   and the count of ``HGMMA`` (wgmma) instructions in each library: the
+   flash-attention and SSD-scan libraries must have some (their bf16
+   kernels run on the tensor cores);
 2. each hand-written kernel against its plain PyTorch version on the card:
    paged chunk attention (K1) at hd 32/128, f32, bf16 and int8 pools, a CoW
    ``page_map`` and a zero-length row; flash attention (K2); cached-only
@@ -34,9 +37,10 @@ Phases (any failure exits non-zero; nothing is caught into success):
    tokens; the mamba2-2.7b widths at 4 layers in float32, the branching
    cycle, identical tokens and committed state within 1e-4;
 6. the timing of each kernel at the main paths' shapes beside its plain
-   version, the nearest single PyTorch call where one exists, and the
-   card's bound; then the ``{"kernels": [...]}`` line, the card line and the
-   final ``{"ok": true, ...}`` line.
+   version, the nearest single PyTorch call where one exists, the card's
+   bound and, for K2 and K4, the time of their earlier CUDA-core design
+   (from PERF.md); then the ``{"kernels": [...]}`` line, the card line and
+   the final ``{"ok": true, ...}`` line.
 
 Every path's kernel launch counters are zeroed just before it runs and
 read just after; a kernel of the path that never launched fails the run.
@@ -49,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -88,6 +93,29 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log_text: str) -> list:
+    """(kernel, registers, spill-store bytes) of each kernel in one ptxas
+    -v log."""
+    out, kernel, spill = [], None, 0
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            kernel = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used " in ln and " registers" in ln and kernel:
+            out.append((kernel, int(ln.split("Used ")[1].split()[0]), spill))
+            kernel = None
+    return out
+
+
+def hgmma_count(lib: Path) -> int:
+    """wgmma instructions (HGMMA) in a built library's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return sass.count("HGMMA")
 
 
 class Timer:
@@ -250,7 +278,16 @@ def ssd_case(gen, *, s, H=80, P=64, N=128, dtype=torch.bfloat16, b=1):
             F.silu(rand(b, s, N)).to(dtype), F.silu(rand(b, s, N)).to(dtype))
 
 
-SSD_ROWS = 32    # the kernel's row tile
+SSD_ROWS = 64    # the bf16 kernel's row tile
+
+# ms of K2 and K4's earlier bf16 designs, f32 arithmetic on the CUDA cores,
+# at the main paths' shapes, cold L2 (PERF.md's "earlier ms" column:
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside
+# this run's times
+CUDA_CORE_MS = {("flash_attention", 1023): 0.7961,
+                ("flash_attention", 2048): 1.8470,
+                ("ssd_scan", 1000): 0.4944, ("ssd_scan", 2048): 0.9770,
+                ("ssd_scan", 3000): 1.4256, ("ssd_scan", 4096): 1.9406}
 
 
 def ssd_cost(x, B) -> tuple:
@@ -314,7 +351,7 @@ def phase_kernels(gen) -> None:
                 if not c["ok"]:
                     fail("paged_chunk_attention disagrees with its plain "
                          "version")
-    for s in (1000, 2048):
+    for s in (1023, 2048):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = flash_case(gen, s=s, dtype=dtype)
             out = flash_attention(q, k, v)
@@ -872,8 +909,10 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict) -> list:
         bnd, by = bound_ms(*flash_cost(q, k), torch.bfloat16)
         k2[s] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
                      bound_by=by, max_abs_err=c["max_abs_err"])
-        log(f"K2 s={s}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        old = CUDA_CORE_MS["flash_attention", s]
+        log(f"K2 s={s}: kernel {ms:.4f} ms (CUDA-core design {old:.4f} ms, "
+            f"{old / ms:.1f}x), sdpa {lib:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by})")
     f = k2[1023]
     rows.append({
         "name": "flash_attention", "route": "cuda",
@@ -931,8 +970,10 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict) -> list:
         bnd, by = bound_ms(*ssd_cost(args[0], args[3]), torch.bfloat16)
         k4[s] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                      max_abs_err=max(cy["max_abs_err"], cs["max_abs_err"]))
-        log(f"K4 s={s} H=80 P=64 N=128 bf16: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+        old = CUDA_CORE_MS["ssd_scan", s]
+        log(f"K4 s={s} H=80 P=64 N=128 bf16: kernel {ms:.4f} ms (CUDA-core "
+            f"design {old:.4f} ms, {old / ms:.1f}x), plain {plain:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by})")
         del args, y_ref, state_ref, y, state
     d = k4[max(k4)]
     rows.append({
@@ -961,14 +1002,15 @@ def main() -> None:
     secs = _build.build_all()
     log(f"built {sorted(_build.SOURCES)} in {secs:.1f} s")
     for name, text in _build.BUILD_LOGS.items():
-        lines = text.splitlines()
-        regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
-                if "Used " in ln and " registers" in ln]
-        spills = [ln.strip() for ln in lines if "spill stores" in ln
-                  and " 0 bytes spill stores" not in ln]
-        log(f"{name}: {len(regs)} instantiations, registers "
-            f"{min(regs, default=0)}-{max(regs, default=0)}, "
-            f"spilling {spills or 'none'}")
+        log(f"{name}: ptxas per kernel (registers, spill stores):")
+        for kernel, regs, spill in ptxas_report(text):
+            log(f"  {regs:3d} registers, {spill:3d} bytes spilled: "
+                f"{kernel[:100]}")
+    for name in sorted(_build.SOURCES):
+        n = hgmma_count(_build.library_path(name))
+        log(f"{name}: {n} HGMMA instructions in its SASS")
+        if name in ("flash_attention", "ssd_scan") and not n:
+            fail(f"{name} was built without tensor-core (wgmma) instructions")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     t0 = time.perf_counter()
     phase_kernels(gen)

@@ -16,6 +16,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 TOP = {"embed", "layers", "final_norm", "lm_head"}
 LAYER = {"ln1", "ln2", "attn", "mlp"}
 ATTN = {"wq", "wk", "wv", "wo", "bq", "bk", "bv"}
@@ -25,8 +27,10 @@ MAMBA = {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w",
          "out_proj"}
 
 
-def tensor_from_numpy(a: np.ndarray, device: Any = "cpu") -> torch.Tensor:
-    """One array to a tensor of the same dtype and bits."""
+def tensor_from_numpy(a: np.ndarray, device: Any = None) -> torch.Tensor:
+    """One array to a tensor of the same dtype and bits, on ``device``
+    (the card unless the caller names one)."""
+    device = resolve_device(device)
     a = np.array(a)       # a writable, contiguous copy torch may own
     if a.dtype.name == "bfloat16":
         bits = a.view(np.uint16).view(np.int16)
@@ -42,10 +46,12 @@ def _check_keys(tree: Dict[str, Any], allowed: set, where: str) -> None:
             "port does not serve yet (it serves dense and SSM)")
 
 
-def params_from_jax(tree: Dict[str, Any], device: Any = "cpu"
+def params_from_jax(tree: Dict[str, Any], device: Any = None
                     ) -> Dict[str, Any]:
     """The JAX package's dense- or SSM-family parameter tree (numpy
-    leaves) as the port's parameter dict on ``device``."""
+    leaves) as the port's parameter dict on ``device`` (the card unless
+    the caller names one)."""
+    device = resolve_device(device)
     _check_keys(tree, TOP, "params")
     layers = tree["layers"]
     if "mamba" in layers:

@@ -81,7 +81,9 @@ def nvcc() -> str:
                        "on a machine with the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """The library file one kernel source builds into (named by a hash of
+    its sources and the flags)."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for path in [KERNELS_DIR / SOURCES[name],
                  *sorted(COMMON_INCLUDE.glob("*.cuh"))]:
@@ -92,8 +94,8 @@ def _target(name: str) -> Path:
 def build_all(names: Optional[List[str]] = None) -> float:
     """Compile every missing kernel library in parallel; returns seconds."""
     names = list(SOURCES) if names is None else names
-    todo: List[Tuple[str, Path]] = [(n, _target(n)) for n in names
-                                    if not _target(n).exists()]
+    todo: List[Tuple[str, Path]] = [(n, library_path(n)) for n in names
+                                    if not library_path(n).exists()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -124,7 +126,7 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         for fn_name in ARGTYPES:
             if ENTRY_LIBRARY.get(fn_name, fn_name) == name:
                 fn = getattr(lib, fn_name)

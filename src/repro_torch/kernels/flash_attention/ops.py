@@ -2,7 +2,8 @@
 
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
 the hand-written kernel in ``csrc/flash_attention.cu`` or raises — there is
-no fallback on the card.  Prompts of any length run (the kernel masks its
+no fallback on the card.  bf16 runs the tensor-core design (wgmma, TMA), f32
+the CUDA-core one.  Prompts of any length run (the kernel masks its
 ragged tail).  ``LAUNCHES`` counts kernel launches.
 """
 
@@ -18,6 +19,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 NAME = "flash_attention"
 LAUNCHES = {NAME: 0}
 HEAD_DIMS = (32, 64, 128)
+#: bf16 terms each f32 operand of the bf16 kernel's tensor-core products is
+#: split into (P in O += P.V); tests/test_torch_tc_numerics.py chose them
+SPLIT_TERMS = {"P": 2}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

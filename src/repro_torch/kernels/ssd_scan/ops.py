@@ -2,7 +2,8 @@
 
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
 the hand-written kernel in ``csrc/ssd_scan.cu`` or raises — there is no
-fallback on the card.  Any length runs (the kernel pads its ragged tail).
+fallback on the card.  bf16 runs the tensor-core design (wgmma, TMA), f32
+the CUDA-core one.  Any length runs (the kernel pads its ragged tail).
 The kernel walks the sequence in its own row tile, so ``chunk`` shapes
 only the plain version; the result does not depend on it in exact
 arithmetic.  ``LAUNCHES`` counts kernel launches.
@@ -21,6 +22,10 @@ NAME = "ssd_scan"
 LAUNCHES = {NAME: 0}
 STATE_DIMS = (64, 128)     # N: zamba2, mamba2
 HEAD_DIMS = (64, 128)      # P
+#: bf16 terms each f32 operand of the bf16 kernel's tensor-core products is
+#: split into: W in y = W.x, S in y += exp(cum) C.S, wx in the state update
+#: B^T (w o x); tests/test_torch_tc_numerics.py chose them
+SPLIT_TERMS = {"W": 2, "S": 2, "wx": 2}
 
 
 def _check(x, dt, A, B, C) -> None:
@@ -40,6 +45,7 @@ def _check(x, dt, A, B, C) -> None:
               "B": (B, (b, s, N), x.dtype),
               "C": (C, (b, s, N), x.dtype)}
     _build.check_tensors(NAME, x.device, expect)
+    _build.check_aligned(NAME, x=x, B=B, C=C)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -7,10 +7,15 @@ and the float32 engine on the card must decode the same greedy tokens as
 on the CPU.  Both versions compute in float32 from the same inputs and
 round once to the output's type, so float32 outputs differ by summation
 order only (2e-5) and bfloat16 outputs by at most one ulp of the value
-(2**-7 of it) plus that order noise.
+(2**-7 of it) plus that order noise.  The bf16 kernels of flash attention
+and the SSD scan run their products on the tensor cores with each f32
+operand split into bf16 terms (tests/test_torch_tc_numerics.py), and are
+held to the same tolerance.
 """
 
 import dataclasses
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -20,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
 from repro_torch.core import BranchStore
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -122,6 +128,20 @@ def test_flash_attention_kernel(gen, s, h, kv, hd, dtype):
                                **TOL[dtype])
 
 
+@pytest.mark.parametrize("s", [1023, 2048, 1025],
+                         ids=["s1023", "s2048", "ragged1025"])
+def test_flash_attention_tensor_cores_at_the_prefill_shape(gen, s):
+    # the bf16 kernel (wgmma, P split in bf16 terms) at qwen2-1.5b's prefill
+    # widths; 1025 leaves one row in the last 64-row tile
+    q = torch.randn(1, s, 12, 128, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(1, s, 2, 128, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(1, s, 2, 128, generator=gen, device="cuda").bfloat16()
+    out = flash_ops.flash_attention(q, k, v)
+    torch.testing.assert_close(out.float(),
+                               flash_attention_ref(q, k, v).float(),
+                               **TOL[torch.bfloat16])
+
+
 def test_wrappers_raise_instead_of_falling_back(gen):
     q = torch.randn(1, 8, 2, 48, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
@@ -199,6 +219,42 @@ def test_ssd_scan_kernel(gen, s, N, P, dtype):
     assert y.dtype == dtype and state.dtype == torch.float32
     torch.testing.assert_close(y.float(), y_ref.float(), **TOL[dtype])
     torch.testing.assert_close(state, state_ref, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("s", [64, 65, 1000, 4096, 4033])
+def test_ssd_scan_tensor_cores_at_the_prefill_shape(gen, s):
+    # the bf16 kernel (wgmma, W, S and w o x split in bf16 terms) at
+    # mamba2-2.7b's widths; 65 and 4033 leave one row in the last chunk
+    x, dt, A, B, C = ssd_case(gen, 1, s, 80, 64, 128, torch.bfloat16)
+    y, state = ssd_ops.ssd_scan(x, dt, A, B, C)
+    y_ref, state_ref = ssd_scan_ref(x, dt, A, B, C)
+    torch.testing.assert_close(y.float(), y_ref.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(state, state_ref, **TOL[torch.float32])
+
+
+def test_f32_kernels_keep_the_f32_tolerance(gen):
+    # the CUDA-core f32 instantiations at the main paths' shapes
+    q = torch.randn(1, 1023, 12, 128, generator=gen, device="cuda")
+    k = torch.randn(1, 1023, 2, 128, generator=gen, device="cuda")
+    v = torch.randn(1, 1023, 2, 128, generator=gen, device="cuda")
+    torch.testing.assert_close(flash_ops.flash_attention(q, k, v),
+                               flash_attention_ref(q, k, v),
+                               **TOL[torch.float32])
+    args = ssd_case(gen, 1, 1000, 80, 64, 128, torch.float32)
+    y, state = ssd_ops.ssd_scan(*args)
+    y_ref, state_ref = ssd_scan_ref(*args)
+    torch.testing.assert_close(y, y_ref, **TOL[torch.float32])
+    torch.testing.assert_close(state, state_ref, **TOL[torch.float32])
+
+
+def test_bf16_kernels_are_built_with_wgmma(gen):
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("flash_attention", "ssd_scan"):
+        _build.library(name)
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        assert "HGMMA" in sass, name
 
 
 def test_ssd_scan_raises_instead_of_falling_back(gen):

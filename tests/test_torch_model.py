@@ -60,7 +60,7 @@ def test_port_config_copies_match_the_reference():
                          ids=["f32", "bf16"])
 def test_bridge_round_trips_bits(dtype):
     a = np.random.default_rng(0).standard_normal((3, 5)).astype(dtype)
-    t = tensor_from_numpy(a)
+    t = tensor_from_numpy(a, device="cpu")
     assert t.dtype == {np.float32: torch.float32}.get(dtype, torch.bfloat16)
     back = (t.view(torch.int16).numpy().view(np.uint16) if
             t.dtype == torch.bfloat16 else t.numpy())
@@ -83,7 +83,7 @@ def test_bridge_refuses_families_the_port_does_not_serve():
     params = jax.tree_util.tree_map(np.copy, reference("paper-agentic")[1])
     params["layers"]["moe"] = params["layers"].pop("mlp")
     with pytest.raises(NotImplementedError):
-        params_from_jax(params)
+        params_from_jax(params, device="cpu")
 
 
 @pytest.mark.parametrize("name,s", [("paper-agentic", 13),
@@ -95,7 +95,7 @@ def test_prefill_logits_and_kv_match_jax(name, s):
     jcfg, pcfg = configs(name)
     jmodel, weights = reference(name)
     jparams = jax.tree_util.tree_map(jnp.asarray, weights)
-    pparams = params_from_jax(weights)
+    pparams = params_from_jax(weights, device="cpu")
     if jcfg.qkv_bias:
         # the reference initializes biases to zero; make them matter
         rng = np.random.default_rng(1)

@@ -40,7 +40,8 @@ def setup():
     pcfg = dataclasses.replace(port_config("paper-agentic"), dtype="float32")
     jmodel = JaxModel(jcfg, attn_chunk=8, remat=False)
     jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
-    pparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    pparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              device="cpu")
     return jmodel, jparams, Model(pcfg), pparams
 
 

@@ -128,7 +128,8 @@ def runs():
     jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
     weights = jax.tree_util.tree_map(np.asarray, jparams)
     return (jax_cycle(jmodel, jparams, PROMPT),
-            port_cycle(Model(pcfg), params_from_jax(weights), PROMPT))
+            port_cycle(Model(pcfg), params_from_jax(weights, device="cpu"),
+                       PROMPT))
 
 
 def test_tokens_winner_and_statuses_identical(runs):

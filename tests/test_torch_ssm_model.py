@@ -49,7 +49,7 @@ def reference():
 def both():
     jmodel, weights = reference()
     return (jmodel, jax.tree_util.tree_map(jnp.asarray, weights),
-            Model(configs()[1]), params_from_jax(weights))
+            Model(configs()[1]), params_from_jax(weights, device="cpu"))
 
 
 def prompt(seed, b=2, s=21):
@@ -76,7 +76,7 @@ def test_config_copy_matches_the_reference():
 
 def test_bridge_round_trips_and_init_has_the_reference_layout():
     _, weights = reference()
-    pparams = params_from_jax(weights)
+    pparams = params_from_jax(weights, device="cpu")
     flat = {jax.tree_util.keystr(k): v for k, v in
             jax.tree_util.tree_flatten_with_path(weights)[0]}
     pflat = {jax.tree_util.keystr(k): v for k, v in

@@ -1,0 +1,285 @@
+"""The split-bf16 arithmetic of the tensor-core kernels, emulated on the CPU.
+
+The bf16 instantiations of K2 (flash attention) and K4 (SSD scan) run
+their products on Hopper's tensor cores, which take bf16 operands and sum
+into f32.  A product of two bf16 inputs (q.k, C.B, anything times x or V)
+is exact in f32.  An operand that the kernel computes in f32 (K2's softmax
+weights P; K4's decay weights W, carried state S and weighted x) is split
+into bf16 terms, ``hi = bf16(v)``, ``lo = bf16(v - hi)``, ..., and every
+term goes through the tensor cores into the same f32 accumulator.
+
+Each emulation below repeats its kernel's arithmetic tile by tile: the
+kernel's tile sizes, bf16 operands, f32 accumulation, the kernel's order of
+rescaling and accumulating, and one final rounding.  It is held against the
+unchanged plain version under the unchanged tolerance ``TOL`` of the card
+tests and ``chip_smoke.py``.  The number of terms of each product is the
+smallest that meets ``TOL`` with margin (the unrounded error at most half
+the bound) at every case; the kernels' sources carry the same numbers
+(checked here).  With one term, a product either still meets ``TOL`` with
+margin at every case (and then the kernel uses one term), or misses it,
+which shows that the split is what holds ``TOL``.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+KERNELS = Path(flash_ops.__file__).resolve().parents[1]
+
+# the card tests' and chip_smoke.py's tolerance, unchanged:
+# |out - ref| <= atol + rtol * |ref|
+TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-5, 2 ** -7)}
+
+ROWS = 64       # wgmma's M: K2's query tile and K4's row tile
+KEYS = 64       # K2's key tile
+LOG2E = 1.4426950408889634
+
+
+def split(v: torch.Tensor, terms: int) -> list:
+    """v (f32) as ``terms`` bf16 values (held in f32) whose sum is v to
+    ~8 bits per term."""
+    out = []
+    for _ in range(terms):
+        t = v.to(torch.bfloat16).float()
+        out.append(t)
+        v = v - t
+    return out
+
+
+def mma(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        terms: int) -> torch.Tensor:
+    """acc + a @ b with a split into ``terms`` bf16 terms, each product
+    summed into the f32 accumulator in turn (b is bf16-valued)."""
+    for t in split(a, terms):
+        acc = acc + t @ b
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# K2: causal GQA flash attention, 64 query rows by 64 keys per tile
+# ---------------------------------------------------------------------------
+
+def flash_tc(q, k, v, p_terms: int) -> torch.Tensor:
+    """The bf16 kernel's arithmetic; returns the f32 output before its one
+    rounding.  S = q.k^T in f32 (exact products), the online softmax in
+    base 2 on the f32 scores, O = alpha O + P.V with P split, l the sum of
+    the f32 P, out = O / l."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    nt = -(-s // ROWS)
+    pad = nt * ROWS - s
+
+    def heads(x, rep):          # [b, s, n, hd] -> [b, h, s_pad, hd] f32
+        x = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).transpose(1, 2)
+        return x.repeat_interleave(rep, dim=1)
+
+    qt = heads(q, 1).reshape(b, h, nt, ROWS, hd)
+    kf, vf = heads(k, g), heads(v, g)
+    c = (1.0 / math.sqrt(hd)) * LOG2E
+    m = torch.full((b, h, nt, ROWS, 1), float("-inf"))
+    lsum = torch.zeros(b, h, nt, ROWS, 1)
+    o = torch.zeros(b, h, nt, ROWS, hd)
+    row = torch.arange(ROWS)[:, None]
+    key = torch.arange(KEYS)[None, :]
+    for j in range(nt):
+        # query tiles i >= j walk key tile j; the diagonal one is masked
+        act = torch.arange(nt) >= j
+        kt = kf[:, :, None, j * KEYS:(j + 1) * KEYS]
+        vt = vf[:, :, None, j * KEYS:(j + 1) * KEYS]
+        t = (qt @ kt.transpose(-1, -2)) * c
+        diag = (torch.arange(nt) == j)[:, None, None] & (key > row)
+        t = t.masked_fill(diag, float("-inf"))
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(t - m_new)
+        keep = act[:, None, None]
+        lsum = torch.where(keep, lsum * alpha + p.sum(-1, keepdim=True), lsum)
+        o = torch.where(keep, mma(o * alpha, p, vt, p_terms), o)
+        m = torch.where(keep, m_new, m)
+    out = (o / lsum).reshape(b, h, nt * ROWS, hd)[:, :, :s]
+    return out.transpose(1, 2)
+
+
+def flash_inputs(seed, s, h, kv, hd):
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            torch.bfloat16)
+    return rand(1, s, h, hd), rand(1, s, kv, hd), rand(1, s, kv, hd)
+
+
+# ---------------------------------------------------------------------------
+# K4: the SSD scan, 64-row chunks
+# ---------------------------------------------------------------------------
+
+def ssd_tc(x, dt, A, B, C, terms: dict):
+    """The bf16 kernel's arithmetic per 64-row chunk; returns y (f32,
+    before its one rounding) and the f32 state.  ``terms`` names the split
+    of W (y = W.x), S (y += exp(cum) C.S) and wx (S += B^T (w o x)).  The
+    in-chunk decays are exp2 of differences of running sums in base 2; the
+    state's weights w exp the direct suffix sums."""
+    b, s, H, P = x.shape
+    N = B.shape[-1]
+    nc = -(-s // ROWS)
+    pad = nc * ROWS - s
+
+    def chunks(t):              # zero-padded tail, [b, nc, ROWS, ...] f32
+        t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(b, nc, ROWS, *t.shape[2:])
+
+    xr, dtr, Br, Cr = chunks(x), chunks(dt), chunks(B), chunks(C)
+    causal = torch.ones(ROWS, ROWS, dtype=torch.bool).tril()
+    S = torch.zeros(b, H, N, P)
+    ys = []
+    for c in range(nc):
+        xc = xr[:, c].permute(0, 2, 1, 3)                   # [b,H,k,P]
+        dA = dtr[:, c] * A                                  # [b,ROWS,H]
+        cum = torch.cumsum(dA, dim=1)
+        cum2 = cum * LOG2E
+        # sum_{i>k} dA_i, scanned from the end (not cum_last - cum_k)
+        later = F.pad(dA[:, 1:], (0, 0, 0, 1))
+        after = torch.flip(torch.cumsum(torch.flip(later, [1]), dim=1), [1])
+        wk = dtr[:, c] * torch.exp(after)                   # [b,k,H]
+        G = Cr[:, c] @ Br[:, c].transpose(-1, -2)           # [b,q,k]
+        seg = cum2[:, :, None, :] - cum2[:, None, :, :]     # [b,q,k,H]
+        W = (G[..., None] * torch.exp2(seg.masked_fill(
+            ~causal[None, :, :, None], 0.0))) * dtr[:, c][:, None]
+        W = W.masked_fill(~causal[None, :, :, None], 0.0).permute(0, 3, 1, 2)
+        yc = mma(torch.zeros(b, H, ROWS, P), W, xc, terms["W"])
+        y2 = mma(torch.zeros(b, H, P, ROWS), S.transpose(-1, -2),
+                 Cr[:, c].transpose(-1, -2)[:, None], terms["S"])
+        yc = yc + torch.exp(cum).permute(0, 2, 1)[..., None] * y2.transpose(
+            -1, -2)
+        ys.append(yc)
+        # the chunk's update B^T (w o x) in an accumulator of its own (w o x
+        # split), then one fma per element into the carried state
+        wx = wk.permute(0, 2, 1)[..., None] * xc              # [b,H,k,P]
+        U = torch.zeros(b, H, N, P)
+        for t in split(wx, terms["wx"]):
+            U = U + Br[:, c].transpose(-1, -2)[:, None] @ t
+        S = S * torch.exp(cum[:, -1])[:, :, None, None] + U
+    y = torch.stack(ys, dim=2).reshape(b, H, nc * ROWS, P)[:, :, :s]
+    return y.permute(0, 2, 1, 3), S
+
+
+def ssd_inputs(seed, s, H, P, N):
+    """chip_smoke.py's ssd_case scales (x, B, C after the conv's SiLU, dt
+    after softplus with init_mamba's dt_bias, A from its A_log) for H heads
+    spread over mamba2-2.7b's 80, so the fastest decays are included."""
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32))
+    heads = torch.linspace(0, 79, H).round().long()
+    dt_bias = torch.log(torch.expm1(torch.logspace(-3, -1, 80)))[heads]
+    A = -torch.linspace(1.0, 16.0, 80)[heads]
+    bf = torch.bfloat16
+    return (F.silu(rand(1, s, H, P)).to(bf),
+            F.softplus(rand(1, s, H) + dt_bias), A,
+            F.silu(rand(1, s, N)).to(bf), F.silu(rand(1, s, N)).to(bf))
+
+
+# ---------------------------------------------------------------------------
+# measures
+# ---------------------------------------------------------------------------
+
+def ratios(out_f32: torch.Tensor, ref_f32: torch.Tensor, dtype) -> dict:
+    """``raw``: max unrounded |out - ref| over the TOL bound; ``tol``: the
+    same after both are rounded to ``dtype`` (<= 1 meets TOL).  Meeting TOL
+    with margin is raw <= 0.5."""
+    atol, rtol = TOL[dtype]
+    raw = ((out_f32 - ref_f32).abs() / (atol + rtol * ref_f32.abs())).max()
+    o, r = out_f32.to(dtype).float(), ref_f32.to(dtype).float()
+    tol = ((o - r).abs() / (atol + rtol * r.abs())).max()
+    return {"raw": raw.item(), "tol": tol.item()}
+
+
+FLASH_CASES = [(1, 12, 2, 128), (77, 12, 2, 128), (1023, 12, 2, 128),
+               (40, 4, 2, 32), (130, 4, 1, 64)]
+SSD_CASES = [(s, 3, 64, N) for s in (1, 63, 64, 65, 1000, 4096)
+             for N in (128, 64)]
+
+
+def _flash(case, p_terms):
+    s, h, kv, hd = case
+    q, k, v = flash_inputs(s, s, h, kv, hd)
+    ref = flash_attention_ref(q.float(), k.float(), v.float())
+    return ratios(flash_tc(q, k, v, p_terms), ref, torch.bfloat16)
+
+
+_SSD_REF = {}
+
+
+def _ssd(case, terms):
+    s, H, P, N = case
+    args = ssd_inputs(s + N, s, H, P, N)
+    if case not in _SSD_REF:
+        f32 = (args[0].float(), *args[1:3], args[3].float(), args[4].float())
+        _SSD_REF[case] = ssd_scan_ref(*f32)
+    y_ref, state_ref = _SSD_REF[case]
+    y, state = ssd_tc(*args, terms)
+    return (ratios(y, y_ref, torch.bfloat16),
+            ratios(state, state_ref, torch.float32))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_split_meets_tol_with_margin(case):
+    r = _flash(case, flash_ops.SPLIT_TERMS["P"])
+    assert r["tol"] <= 1.0 and r["raw"] <= 0.5, r
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_split_meets_tol_with_margin(case):
+    ry, rs = _ssd(case, ssd_ops.SPLIT_TERMS)
+    assert ry["tol"] <= 1.0 and ry["raw"] <= 0.5, ry
+    assert rs["tol"] <= 1.0 and rs["raw"] <= 0.5, rs
+
+
+def test_flash_one_term_p_misses():
+    """P in bf16 alone: the error is reported, and it misses the margin
+    somewhere, so the kernel splits P."""
+    found = {str(c): _flash(c, 1) for c in FLASH_CASES}
+    print("K2 with one-term P:", found)
+    assert flash_ops.SPLIT_TERMS["P"] > 1
+    assert max(r["raw"] for r in found.values()) > 0.5, found
+
+
+@pytest.mark.parametrize("product", ["W", "S", "wx"])
+def test_ssd_one_term_product(product):
+    """Each of K4's split products with one term (the others as the kernel
+    has them): where it meets TOL with margin everywhere the kernel uses one
+    term; where it misses, the kernel splits it."""
+    terms = dict(ssd_ops.SPLIT_TERMS, **{product: 1})
+    found = {}
+    for c in SSD_CASES:
+        ry, rs = _ssd(c, terms)
+        found[str(c)] = max(ry["raw"], rs["raw"])
+    print(f"K4 with one-term {product}: worst raw ratio {found}")
+    if ssd_ops.SPLIT_TERMS[product] == 1:
+        assert max(found.values()) <= 0.5, found
+    else:
+        assert max(found.values()) > 0.5, found
+
+
+@pytest.mark.parametrize("name,terms,pattern", [
+    ("flash_attention/csrc/flash_attention.cu", flash_ops.SPLIT_TERMS,
+     r"constexpr int k(\w+)Terms = (\d+);"),
+    ("ssd_scan/csrc/ssd_scan.cu", ssd_ops.SPLIT_TERMS,
+     r"constexpr int k(\w+)Terms = (\d+);")])
+def test_kernel_sources_use_these_term_counts(name, terms, pattern):
+    found = re.findall(pattern, (KERNELS / name).read_text())
+    assert {k.lower(): int(v) for k, v in found} == {
+        k.lower(): v for k, v in terms.items()}
