@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught into success):
 1. the card's name and power limit, torch and CUDA versions, and the build
    of every kernel from ``src/repro_torch/kernels/**/csrc`` with ``nvcc``
    (one process per source, all at once), with ptxas's registers and spills
-   and the count of ``HGMMA`` (wgmma) instructions in each library: the
-   flash-attention and SSD-scan libraries must have some (their bf16
+   and the count of tensor-core instructions in each library: the
+   flash-attention and SSD-scan libraries must have ``HGMMA`` (wgmma) and
+   the paged-attention library ``HMMA`` (mma.sync) or ``HGMMA`` (their bf16
    kernels run on the tensor cores);
 2. each hand-written kernel against its plain PyTorch version on the card:
    paged chunk attention (K1) at hd 32/128, f32, bf16 and int8 pools, a CoW
@@ -25,7 +26,8 @@ Phases (any failure exits non-zero; nothing is caught into success):
    4 lazy-CoW branches each, decode steps at batch 32, a speculative
    verify, first-commit-wins, a checkpoint/restore, and a full release;
    first on the fused path, then (path B) on the legacy ``attn_impl="ref"``
-   path for 8 steps;
+   path for 8 steps; each bf16 K1/K3 call must be one launch, and no split
+   combine kernel may run in the profiled steps;
 4. the SSM path at full width (path A): ``mamba2-2.7b`` in bf16 with random
    weights, 4 prompts of 1000-4096 tokens prefilled through the SSD scan,
    each cache snapshotted into its own ``BranchStore`` and forked 8 ways,
@@ -38,9 +40,10 @@ Phases (any failure exits non-zero; nothing is caught into success):
    cycle, identical tokens and committed state within 1e-4;
 6. the timing of each kernel at the main paths' shapes beside its plain
    version, the nearest single PyTorch call where one exists, the card's
-   bound and, for K2 and K4, the time of their earlier CUDA-core design
-   (from PERF.md); then the ``{"kernels": [...]}`` line, the card line and
-   the final ``{"ok": true, ...}`` line.
+   bound and the time of each kernel's earlier design (from PERF.md: K2
+   and K4 on the CUDA cores, K1 and K3 the CUDA-core page walk); then the
+   ``{"kernels": [...]}`` line, the card line and the final
+   ``{"ok": true, ...}`` line.
 
 Every path's kernel launch counters are zeroed just before it runs and
 read just after; a kernel of the path that never launched fails the run.
@@ -110,12 +113,13 @@ def ptxas_report(log_text: str) -> list:
     return out
 
 
-def hgmma_count(lib: Path) -> int:
-    """wgmma instructions (HGMMA) in a built library's SASS."""
+def tensor_core_counts(lib: Path) -> dict:
+    """wgmma (HGMMA) and mma.sync (HMMA) instructions in a built library's
+    SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    return sass.count("HGMMA")
+    return {"HGMMA": sass.count("HGMMA"), "HMMA": sass.count("HMMA")}
 
 
 class Timer:
@@ -280,14 +284,21 @@ def ssd_case(gen, *, s, H=80, P=64, N=128, dtype=torch.bfloat16, b=1):
 
 SSD_ROWS = 64    # the bf16 kernel's row tile
 
-# ms of K2 and K4's earlier bf16 designs, f32 arithmetic on the CUDA cores,
-# at the main paths' shapes, cold L2 (PERF.md's "earlier ms" column:
-# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside
-# this run's times
+# ms of the earlier bf16 designs at the main paths' shapes, cold L2
+# (PERF.md's "earlier ms" column: chip_smoke.py on an NVIDIA H100 80GB HBM3
+# at 700.00 W), printed beside this run's times: K2 and K4 with f32
+# arithmetic on the CUDA cores, K1 and K3 the CUDA-core page walk (f32
+# staging, a second combine launch when split)
 CUDA_CORE_MS = {("flash_attention", 1023): 0.7961,
                 ("flash_attention", 2048): 1.8470,
                 ("ssd_scan", 1000): 0.4944, ("ssd_scan", 2048): 0.9770,
-                ("ssd_scan", 3000): 1.4256, ("ssd_scan", 4096): 1.9406}
+                ("ssd_scan", 3000): 1.4256, ("ssd_scan", 4096): 1.9406,
+                ("paged_chunk_attention", "decode"): 0.0498,
+                ("paged_chunk_attention", "decode_len1024"): 0.0538,
+                ("paged_chunk_attention", "verify"): 0.0402,
+                ("paged_chunk_attention", "suffix_prefill"): 0.1552,
+                ("paged_attention", "decode"): 0.0463,
+                ("paged_attention", "decode_len1024"): 0.0520}
 
 
 def ssd_cost(x, B) -> tuple:
@@ -407,8 +418,54 @@ def zero_launches() -> None:
             counts[name] = 0
 
 
+@contextlib.contextmanager
+def counted_calls():
+    """Count the engine's calls of the two paged-attention wrappers (the
+    names serve_loop bound at import), to hold launches to one per call."""
+    from repro_torch.runtime import serve_loop
+
+    calls = {"paged_chunk_attention": 0, "paged_attention": 0}
+    saved = {name: getattr(serve_loop, name) for name in calls}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+    for name in calls:
+        setattr(serve_loop, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(serve_loop, name, fn)
+
+
 def serve_dense(model, params, *, attn_impl: str, steps: int,
                 seed: int = 0) -> dict:
+    """:func:`_serve_dense` with the engine's paged-attention calls counted:
+    every bf16 call must be one launch, and the profiled decode steps must
+    launch the paged walk once per layer and no split combine kernel."""
+    with counted_calls() as calls:
+        res = _serve_dense(model, params, attn_impl=attn_impl, steps=steps,
+                           seed=seed)
+    launches = res["launches"]
+    log(f"paged-attention calls on the path: {calls}")
+    for name, n in calls.items():
+        if launches[name] != n:
+            fail(f"{name}: {launches[name]} launches for {n} bf16 calls "
+                 "(one launch per call expected)")
+    prof = res["profile"]
+    if prof.get("combine_launches_per_step"):
+        fail(f"a split combine kernel ran in the bf16 profile: {prof}")
+    if prof.get("paged_launches_per_step") not in (None, model.cfg.num_layers):
+        fail(f"expected {model.cfg.num_layers} paged-attention launches per "
+             f"decode step (one per layer): {prof}")
+    return res
+
+
+def _serve_dense(model, params, *, attn_impl: str, steps: int,
+                 seed: int = 0) -> dict:
     """One run of the dense load through ServeEngine (phase 3): the fused
     path with attn_impl="auto", path B with "ref"."""
     from repro_torch.runtime import ServeEngine
@@ -714,15 +771,24 @@ def profile_steps(step, steps: int = 2) -> dict:
     for us, count, name in kernels[:8]:
         log(f"  {us / steps / 1e3:8.3f} ms/step {count // steps:5d}x "
             f"{name[:90]}")
-    for label, key in (("K1 attention", "paged_chunk_attention_kernel"),
-                       ("K3 attention", "paged_attention_kernel"),
-                       ("K1/K3 split combine", "paged_chunk_combine_kernel")):
+    out = {"device_busy_ms_per_step": busy / steps / 1e3,
+           "idle_share": 1 - busy / wall_us}
+    for label, key, name in (
+            ("K1/K3 attention (bf16, tensor cores)", "paged_tc_kernel",
+             "paged"),
+            ("K1 attention (f32)", "paged_chunk_attention_kernel", None),
+            ("K3 attention (f32)", "paged_attention_kernel", None),
+            ("K1/K3 split combine (f32)", "paged_chunk_combine_kernel",
+             "combine")):
         mine = [k for k in kernels if key in k[2]]
+        ms = sum(k[0] for k in mine) / steps / 1e3
+        n = sum(k[1] for k in mine) // steps
         if mine:
-            log(f"  {label}: {sum(k[0] for k in mine) / steps / 1e3:.3f} "
-                f"ms/step, {sum(k[1] for k in mine) // steps} launches/step")
-    return {"device_busy_ms_per_step": busy / steps / 1e3,
-            "idle_share": 1 - busy / wall_us}
+            log(f"  {label}: {ms:.3f} ms/step, {n} launches/step")
+        if name:
+            out[f"{name}_ms_per_step"] = ms
+            out[f"{name}_launches_per_step"] = n
+    return out
 
 
 def _leaves(tree):
@@ -866,9 +932,11 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict) -> list:
         bnd, by = bound_ms(*paged_cost(case), torch.bfloat16)
         k1[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                         max_abs_err=c["max_abs_err"])
+        old = CUDA_CORE_MS["paged_chunk_attention", name]
         log(f"K1 {name} b={shp['b']} t={shp['t']} splits={splits}: "
-            f"kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"kernel {ms:.4f} ms (CUDA-core walk {old:.4f} ms, "
+            f"{old / ms:.1f}x), plain {plain:.4f} ms, bound {bnd:.4f} ms "
+            f"({by})")
         if splits > 1:
             # the split walk against one block per row: A B B A
             check_k1(name, case, ref, 1)
@@ -940,8 +1008,10 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict) -> list:
         bnd, by = bound_ms(*cached_cost(case), torch.bfloat16)
         k3[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                         max_abs_err=c["max_abs_err"])
+        old = CUDA_CORE_MS["paged_attention", name]
         log(f"K3 {name} b=32 (lengths {min(lengths)}-{max(lengths)}): "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+            f"kernel {ms:.4f} ms (CUDA-core walk {old:.4f} ms, "
+            f"{old / ms:.1f}x), plain {plain:.4f} ms, bound {bnd:.4f} ms "
             f"({by})")
     d = k3["decode"]
     rows.append({
@@ -1007,10 +1077,13 @@ def main() -> None:
             log(f"  {regs:3d} registers, {spill:3d} bytes spilled: "
                 f"{kernel[:100]}")
     for name in sorted(_build.SOURCES):
-        n = hgmma_count(_build.library_path(name))
-        log(f"{name}: {n} HGMMA instructions in its SASS")
-        if name in ("flash_attention", "ssd_scan") and not n:
+        n = tensor_core_counts(_build.library_path(name))
+        log(f"{name}: {n['HGMMA']} HGMMA and {n['HMMA']} HMMA instructions "
+            "in its SASS")
+        if name in ("flash_attention", "ssd_scan") and not n["HGMMA"]:
             fail(f"{name} was built without tensor-core (wgmma) instructions")
+        if name == "paged_chunk_attention" and not (n["HGMMA"] or n["HMMA"]):
+            fail(f"{name} was built without tensor-core instructions")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     t0 = time.perf_counter()
     phase_kernels(gen)

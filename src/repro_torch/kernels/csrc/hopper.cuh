@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels, in
 // inline PTX: the warpgroup matrix multiply (wgmma) with its shared-memory
-// matrix descriptors and fences, mbarriers, TMA tile loads with the tensor
-// map built on the host, and the split of an f32 value into bf16 terms.
+// matrix descriptors and fences, the warp-level mma.sync with ldmatrix and
+// cp.async copies, mbarriers, TMA tile loads with the tensor map built on
+// the host, and the split of an f32 value into bf16 terms.
 //
 // Layout contract.  A tile that wgmma reads from shared memory is stored as
 // TMA's swizzled layout writes it: rows of SW bytes (SW = 128 or 64, the
@@ -231,6 +232,61 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
           "n"(TRANS_B));
+}
+
+// ---------------------------------------------------------------------------
+// warp-level products (mma.sync), ldmatrix and cp.async
+// ---------------------------------------------------------------------------
+
+// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 operands, f32 sums.  Fragments
+// (lane l, r = l / 4, c = 2 (l % 4)): a[0] = A(r, c..c+1), a[1] = A(r + 8,
+// c..), a[2] = A(r, c + 8..), a[3] = A(r + 8, c + 8..); b0 = B(c..c+1, r),
+// b1 = B(c + 8.., r); d[0..1] = D(r, c..c+1), d[2..3] = D(r + 8, c..c+1).
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lanes 8 j .. 8 j + 7 give
+// the row addresses of matrix j, and register j of lane l holds row l / 4,
+// columns 2 (l % 4) .. + 1 of matrix j (of its transpose with kTrans).
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  if constexpr (kTrans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(row)));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(row)));
+  }
+}
+
+// A 16-byte copy from global to shared memory that bypasses L1; with
+// `valid` false it writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's newest copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Two int8 values (the lower address first) as a bf16x2 register: exact.
+__device__ __forceinline__ uint32_t int8x2_bf16x2(int8_t lo, int8_t hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(hi));
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // ---------------------------------------------------------------------------

@@ -9,9 +9,11 @@
 A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
 the hand-written kernel in ``csrc/paged_chunk_attention.cu`` (one page
 walk, two entry points) or raises — there is no fallback on the card.
-``LAUNCHES`` counts each wrapper's kernel launches apart: two for a call
-whose page walk is split (the attention kernel and the combine kernel that
-merges its splits), one otherwise.
+bf16 q (bf16 or int8 pools) runs the tensor-core walk: one launch per call,
+its page ranges split over a thread-block cluster that merges them itself.
+float32 runs the CUDA-core walk, whose split calls launch a second kernel
+that merges the splits.  ``LAUNCHES`` counts each wrapper's kernel launches
+apart.
 """
 
 from __future__ import annotations
@@ -32,8 +34,21 @@ NAME = "paged_chunk_attention"
 CACHED_NAME = "paged_attention"
 LAUNCHES = {NAME: 0, CACHED_NAME: 0}
 HEAD_DIMS = (32, 64, 128)
-ROWS_PER_BLOCK = 8     # PCA_ROWS in the kernel: query rows per block
+ROWS_PER_BLOCK = 8     # PCA_ROWS of the f32 kernel: query rows per block
+#: the bf16 kernel's blocks: up to ONE_WARP_ROWS query rows (t * g) go to
+#: one-warp blocks of 16 rows, more to four-warp blocks of 64 rows; and the
+#: blocks per SM the split aims at for each (the fastest on an H100 at the
+#: dense path's decode, verify and suffix-prefill shapes, PERF.md)
+ONE_WARP_ROWS = 32
+TC_ROWS = (16, 64)
+TC_BLOCKS_PER_SM = (4, 2)
+#: the most page ranges a call's walk is split into (bf16: the cluster
+#: size; above 8 the kernel asks for non-portable clusters, which an H100
+#: takes)
 MAX_SPLITS = 16
+#: bf16 terms each f32 operand of the bf16 kernel's tensor-core products is
+#: split into (P in O += P.V); tests/test_torch_tc_numerics.py chose them
+SPLIT_TERMS = {"P": 2}
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,15 +56,27 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def n_splits(b: int, t: int, kv: int, g: int, device: torch.device) -> int:
-    """How many page ranges each row's walk is split into: 1 when the
-    (sequence, kv head, row tile) blocks already fill a wave of SMs, else
-    enough to give the card about four blocks per SM."""
-    blocks = b * kv * -(-(t * g) // ROWS_PER_BLOCK)
-    sms = _sm_count(device)
+def split_count(b: int, t: int, kv: int, g: int, sms: int,
+                tc: bool = True) -> int:
+    """How many page ranges each row's walk is split into on a card with
+    ``sms`` SMs.  bf16 (``tc``): about ``TC_BLOCKS_PER_SM`` blocks per SM,
+    at most ``MAX_SPLITS``.  f32: 1 when the blocks already fill a wave,
+    else about four blocks per SM."""
+    rows = t * g
+    if tc:
+        i = 0 if rows <= ONE_WARP_ROWS else 1
+        blocks = b * kv * -(-rows // TC_ROWS[i])
+        return max(1, min(MAX_SPLITS, TC_BLOCKS_PER_SM[i] * sms // blocks))
+    blocks = b * kv * -(-rows // ROWS_PER_BLOCK)
     if blocks >= sms:
         return 1
     return min(MAX_SPLITS, -(-4 * sms // blocks))
+
+
+def n_splits(b: int, t: int, kv: int, g: int, device: torch.device,
+             tc: bool = True) -> int:
+    """:func:`split_count` for ``device``'s card."""
+    return split_count(b, t, kv, g, _sm_count(device), tc)
 
 
 def _check(q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
@@ -83,10 +110,18 @@ def _check(q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
     return quant
 
 
-def _partials(splits: int, rows: int, hd: int, device: torch.device):
-    """Per-split softmax states (max, sum, accumulator) the combine kernel
-    merges; none for an unsplit walk."""
-    if splits == 1:
+def _splits(splits: int, name: str) -> int:
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"{name}: {splits} splits, not in 1..{MAX_SPLITS}")
+    return splits
+
+
+def _partials(splits: int, tc: bool, rows: int, hd: int,
+              device: torch.device):
+    """Per-split softmax states (max, sum, accumulator) the f32 combine
+    kernel merges; none for an unsplit walk or the bf16 kernel, whose
+    cluster merges in shared memory."""
+    if splits == 1 or tc:
         return None, None, None
     part_m = torch.empty(splits * rows, dtype=torch.float32, device=device)
     return (part_m, torch.empty_like(part_m),
@@ -128,8 +163,9 @@ def paged_chunk_attention(
                          k_pages=k_pages, v_pages=v_pages)
     b, t, kv, g, hd = q.shape
     out = torch.empty_like(q)
-    splits = n_splits(b, t, kv, g, q.device)
-    parts = _partials(splits, b * t * kv * g, hd, q.device)
+    tc = q.dtype == torch.bfloat16
+    splits = _splits(n_splits(b, t, kv, g, q.device, tc), NAME)
+    parts = _partials(splits, tc, b * t * kv * g, hd, q.device)
     fn = _build.entry(NAME)
     rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
@@ -138,10 +174,10 @@ def paged_chunk_attention(
             v_scales.data_ptr() if quant else None, out.data_ptr(),
             *(_ptr(x) for x in parts),
             b, t, kv, g, hd, k_pages.shape[1], block_tables.shape[1], splits,
-            int(q.dtype == torch.bfloat16), int(quant), 1.0 / math.sqrt(hd),
+            int(tc), int(quant), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(NAME, rc)
-    LAUNCHES[NAME] += 2 if splits > 1 else 1
+    LAUNCHES[NAME] += 2 if parts[0] is not None else 1
     return out
 
 
@@ -188,15 +224,15 @@ def paged_attention(
     b, kv, g, hd = q.shape
     _build.check_aligned(CACHED_NAME, q=q, k_pages=k_pages, v_pages=v_pages)
     out = torch.empty_like(q)
-    splits = n_splits(b, 1, kv, g, q.device)
-    parts = _partials(splits, b * kv * g, hd, q.device)
+    tc = q.dtype == torch.bfloat16
+    splits = _splits(n_splits(b, 1, kv, g, q.device, tc), CACHED_NAME)
+    parts = _partials(splits, tc, b * kv * g, hd, q.device)
     fn = _build.entry(CACHED_NAME)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             *(_ptr(x) for x in parts), b, kv, g, hd, k_pages.shape[1],
-            block_tables.shape[1], splits, int(q.dtype == torch.bfloat16),
-            1.0 / math.sqrt(hd),
+            block_tables.shape[1], splits, int(tc), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(CACHED_NAME, rc)
-    LAUNCHES[CACHED_NAME] += 2 if splits > 1 else 1
+    LAUNCHES[CACHED_NAME] += 2 if parts[0] is not None else 1
     return out

@@ -7,10 +7,10 @@ and the float32 engine on the card must decode the same greedy tokens as
 on the CPU.  Both versions compute in float32 from the same inputs and
 round once to the output's type, so float32 outputs differ by summation
 order only (2e-5) and bfloat16 outputs by at most one ulp of the value
-(2**-7 of it) plus that order noise.  The bf16 kernels of flash attention
-and the SSD scan run their products on the tensor cores with each f32
-operand split into bf16 terms (tests/test_torch_tc_numerics.py), and are
-held to the same tolerance.
+(2**-7 of it) plus that order noise.  The bf16 kernels of flash attention,
+the SSD scan and the paged walk run their products on the tensor cores
+with each f32 operand split into bf16 terms
+(tests/test_torch_tc_numerics.py), and are held to the same tolerance.
 """
 
 import dataclasses
@@ -85,7 +85,10 @@ def paged_case(gen, b, t, kv, g, hd, page, lengths, dtype, quant):
                          ids=str)
 def test_paged_chunk_attention_kernel(gen, hd, g, t, dtype, quant):
     case = paged_case(gen, 3, t, 2, g, hd, 16, [0, 70, 33], dtype, quant)
-    split = paged_ops.n_splits(3, t, 2, g, torch.device("cuda")) > 1
+    # bf16: one cluster launch; f32: the walk, and the combine when split
+    tc = dtype == torch.bfloat16
+    split = not tc and paged_ops.n_splits(3, t, 2, g, torch.device("cuda"),
+                                          False) > 1
     before = paged_ops.LAUNCHES[paged_ops.NAME]
     out = paged_ops.paged_chunk_attention(**case)
     torch.cuda.synchronize()
@@ -95,10 +98,27 @@ def test_paged_chunk_attention_kernel(gen, hd, g, t, dtype, quant):
                                **TOL[dtype])
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("t", [1, 4, 255])
+@pytest.mark.parametrize("hd,g", [(32, 2), (64, 1), (128, 6)], ids=str)
+def test_paged_chunk_attention_tensor_cores(gen, hd, g, t, quant):
+    # the bf16 walk (one-warp blocks up to 32 rows, 64-row tiles above),
+    # bf16 and int8 pools, a CoW redirect and a zero-length row: one launch
+    case = paged_case(gen, 3, t, 2, g, hd, 16, [0, 700, 33], torch.bfloat16,
+                      quant)
+    before = paged_ops.LAUNCHES[paged_ops.NAME]
+    out = paged_ops.paged_chunk_attention(**case)
+    torch.cuda.synchronize()
+    assert paged_ops.LAUNCHES[paged_ops.NAME] == before + 1
+    torch.testing.assert_close(out.float(),
+                               paged_chunk_attention_ref(**case).float(),
+                               **TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("splits", [1, 3, 9, 16])
 def test_paged_chunk_attention_split_walk(gen, monkeypatch, splits):
     # the decode step's shape: 32 rows of uneven lengths, so split ranges
-    # end mid-page, a range can be empty, and the combine kernel merges
+    # end mid-page, a range can be empty, and the cluster merges them
     monkeypatch.setattr(paged_ops, "n_splits", lambda *args: splits)
     lengths = torch.randint(0, 1100, (32,), generator=gen,
                             device="cuda").tolist()
@@ -109,6 +129,36 @@ def test_paged_chunk_attention_split_walk(gen, monkeypatch, splits):
     torch.testing.assert_close(out.float(),
                                paged_chunk_attention_ref(**case).float(),
                                **TOL[torch.bfloat16])
+
+
+def test_paged_walk_one_page_under_the_widest_cluster(gen, monkeypatch):
+    # rows of one page (and less) split over 16 blocks: most blocks of each
+    # cluster have no key, and must still meet the cluster's barriers
+    monkeypatch.setattr(paged_ops, "n_splits", lambda *args: 16)
+    case = paged_case(gen, 4, 1, 2, 6, 128, 16, [16, 5, 1, 0],
+                      torch.bfloat16, False)
+    out = paged_ops.paged_chunk_attention(**case)
+    torch.testing.assert_close(out.float(),
+                               paged_chunk_attention_ref(**case).float(),
+                               **TOL[torch.bfloat16])
+    args = dict(q=case["q"][:, 0].contiguous(), k_pages=case["k_pages"],
+                v_pages=case["v_pages"], block_tables=case["block_tables"],
+                lengths=case["lengths"])
+    out = paged_ops.paged_attention(**args)
+    assert not out[3].any()
+    torch.testing.assert_close(out.float(),
+                               paged_attention_ref(**args).float(),
+                               **TOL[torch.bfloat16])
+
+
+def test_paged_walk_refuses_a_split_above_the_cluster_limit(gen,
+                                                            monkeypatch):
+    monkeypatch.setattr(paged_ops, "n_splits",
+                        lambda *args: paged_ops.MAX_SPLITS + 1)
+    case = paged_case(gen, 2, 1, 2, 6, 128, 16, [40, 5], torch.bfloat16,
+                      False)
+    with pytest.raises(ValueError, match="splits"):
+        paged_ops.paged_chunk_attention(**case)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -181,7 +231,8 @@ def test_paged_attention_kernel(gen, hd, g, dtype):
     args = dict(q=case["q"][:, 0].contiguous(), k_pages=case["k_pages"],
                 v_pages=case["v_pages"], block_tables=case["block_tables"],
                 lengths=case["lengths"])
-    split = paged_ops.n_splits(6, 1, 2, g, torch.device("cuda")) > 1
+    split = dtype == torch.float32 and paged_ops.n_splits(
+        6, 1, 2, g, torch.device("cuda"), False) > 1
     before = paged_ops.LAUNCHES[paged_ops.CACHED_NAME]
     out = paged_ops.paged_attention(**args)
     torch.cuda.synchronize()
@@ -245,6 +296,16 @@ def test_f32_kernels_keep_the_f32_tolerance(gen):
     y_ref, state_ref = ssd_scan_ref(*args)
     torch.testing.assert_close(y, y_ref, **TOL[torch.float32])
     torch.testing.assert_close(state, state_ref, **TOL[torch.float32])
+
+
+def test_paged_attention_is_built_with_tensor_cores(gen):
+    # the bf16 page walk's products are mma.sync (HMMA) instructions
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    _build.library("paged_chunk_attention")
+    sass = subprocess.run(
+        [tool, "-sass", str(_build.library_path("paged_chunk_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    assert "HMMA" in sass or "HGMMA" in sass
 
 
 def test_bf16_kernels_are_built_with_wgmma(gen):

@@ -1,12 +1,14 @@
 """The split-bf16 arithmetic of the tensor-core kernels, emulated on the CPU.
 
-The bf16 instantiations of K2 (flash attention) and K4 (SSD scan) run
-their products on Hopper's tensor cores, which take bf16 operands and sum
-into f32.  A product of two bf16 inputs (q.k, C.B, anything times x or V)
-is exact in f32.  An operand that the kernel computes in f32 (K2's softmax
-weights P; K4's decay weights W, carried state S and weighted x) is split
-into bf16 terms, ``hi = bf16(v)``, ``lo = bf16(v - hi)``, ..., and every
-term goes through the tensor cores into the same f32 accumulator.
+The bf16 instantiations of K2 (flash attention), K4 (SSD scan), K1 (paged
+chunk attention) and K3 (cached-only paged attention) run their products
+on Hopper's tensor cores, which take bf16 operands and sum into f32.  A
+product of two bf16 inputs (q.k, C.B, anything times x or V; an int8 pool
+value is exact in bf16) is exact in f32.  An operand that the kernel
+computes in f32 (K2's and K1/K3's softmax weights P, the latter times the
+int8 v-scale; K4's decay weights W, carried state S and weighted x) is
+split into bf16 terms, ``hi = bf16(v)``, ``lo = bf16(v - hi)``, ..., and
+every term goes through the tensor cores into the same f32 accumulator.
 
 Each emulation below repeats its kernel's arithmetic tile by tile: the
 kernel's tile sizes, bf16 operands, f32 accumulation, the kernel's order of
@@ -33,6 +35,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref,
+    paged_chunk_attention_ref,
+)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
@@ -193,6 +200,179 @@ def ssd_inputs(seed, s, H, P, N):
 
 
 # ---------------------------------------------------------------------------
+# K1 / K3: the paged walk, 16-key tiles, split over a thread-block cluster
+# ---------------------------------------------------------------------------
+
+PAGED_KEYS = 16     # keys per staged tile
+H100_SMS = 132
+
+
+def paged_tc(q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
+             page_map, k_scales, v_scales, p_terms: int,
+             n_split: int) -> torch.Tensor:
+    """The bf16 kernel's arithmetic; returns the f32 output before its one
+    rounding.  K3 is the same walk with no chunk (``k_new`` None) and no
+    ``page_map``.  Per (sequence, kv head, row tile): the key tiles (cached
+    positions in 16s, then the chunk keys the tile's rows can see) are cut
+    into ``n_split`` contiguous shares, one per cluster rank.  Rows <= 16:
+    one 16-row tile whose 4 warps take every 4th tile of the rank's share,
+    merged in warp order; more rows: 64-row tiles, every row over the whole
+    share.  A tile: S = q.k^T (exact products) times c = scale log2(e)
+    times the int8 k-scale, base-2 online softmax, O = alpha O + (P o
+    v-scale).V with that operand split into bf16 terms, l summing the f32
+    P.  Rank 0 merges the ranks in order; a row that saw no key is 0."""
+    b, t, kv, g, hd = q.shape
+    page = k_pages.shape[1]
+    rows = t * g
+    tile_rows = paged_ops.TC_ROWS[rows > paged_ops.ONE_WARP_ROWS]
+    c = (1.0 / math.sqrt(hd)) * LOG2E
+    out = torch.zeros(b, rows, kv, hd)
+    for bi in range(b):
+        n = int(lengths[bi])
+        pos = torch.arange(n)
+        phys = block_tables[bi].long()[pos // page]
+        if page_map is not None:
+            phys = page_map.long()[phys]
+        for h in range(kv):
+            kc = k_pages[phys, pos % page, h].float()     # as stored
+            vc = v_pages[phys, pos % page, h].float()
+            ks = vs = torch.ones(n)
+            if k_scales is not None:
+                ks, vs = k_scales[phys, h], v_scales[phys, h]
+            qr = q[bi, :, h].float().reshape(rows, hd)
+            for r0 in range(0, rows, tile_rows):
+                rr = torch.arange(r0, min(rows, r0 + tile_rows))
+                j_end = 0 if k_new is None else min(t, int(rr[-1]) // g + 1)
+                tiles = [("cached", i) for i in range(-(-n // PAGED_KEYS))]
+                tiles += [("chunk", i) for i in range(-(-j_end // PAGED_KEYS))]
+                per = -(-len(tiles) // n_split)
+                m, l, acc = _merge([
+                    _walk(qr[rr], rr, tiles[rank * per:(rank + 1) * per], kc,
+                          vc, ks, vs, k_new, v_new, bi, h, g, t, n, c, p_terms)
+                    for rank in range(n_split)])
+                o = torch.where(l[:, None] > 0, acc / l[:, None],
+                                torch.zeros(()))
+                out[bi, rr, h] = o
+    return out.reshape(b, t, g, kv, hd).permute(0, 1, 3, 2, 4)
+
+
+def _walk(qr, rr, tiles, kc, vc, ks, vs, k_new, v_new, bi, h, g, t, n, c,
+          p_terms):
+    """One rank's online softmax over its share of the tiles."""
+    R, hd = qr.shape
+    m = torch.full((R,), float("-inf"))
+    l = torch.zeros(R)
+    o = torch.zeros(R, hd)
+    key = torch.arange(PAGED_KEYS)
+    for kind, i in tiles:
+        j0 = i * PAGED_KEYS
+        if kind == "cached":
+            sel = slice(j0, min(n, j0 + PAGED_KEYS))
+            K, V, cs, vsc = kc[sel], vc[sel], c * ks[sel], vs[sel]
+            lim = torch.full((R,), n - j0)
+        else:
+            sel = slice(j0, min(t, j0 + PAGED_KEYS))
+            K, V = k_new[bi, sel, h].float(), v_new[bi, sel, h].float()
+            cs, vsc = torch.full((K.shape[0],), c), torch.ones(K.shape[0])
+            lim = torch.clamp(rr // g + 1, max=t) - j0
+        pad = PAGED_KEYS - K.shape[0]           # zero-filled keys
+        K, V = F.pad(K, (0, 0, 0, pad)), F.pad(V, (0, 0, 0, pad))
+        cs, vsc = F.pad(cs, (0, pad), value=c), F.pad(vsc, (0, pad), value=1.0)
+        s = (qr @ K.T) * cs
+        s = s.masked_fill(key[None, :] >= lim[:, None], float("-inf"))
+        mn = torch.maximum(m, s.amax(-1))
+        mu = torch.where(mn == float("-inf"), torch.zeros(()), mn)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(s - mu[:, None])
+        l = l * alpha + p.sum(-1)
+        o = mma(o * alpha[:, None], p * vsc, V, p_terms)
+        m = mn
+    return m, l, o
+
+
+def _merge(parts):
+    """The kernel's merge of softmax partials, in order; a partial with
+    l = 0 saw no key."""
+    m = torch.stack([x[0] for x in parts])
+    l = torch.stack([x[1] for x in parts])
+    acc = torch.stack([x[2] for x in parts])
+    seen = l > 0
+    mx = torch.where(seen, m, torch.full_like(m, float("-inf"))).amax(0)
+    w = torch.where(seen, torch.exp2(m - mx), torch.zeros(()))
+    return mx, (w * l).sum(0), (w[..., None] * acc).sum(0)
+
+
+def paged_inputs(seed, b, t, kv, g, hd, lengths, quant, page=16):
+    """chip_smoke.py's paged_case made with numpy: disjoint pages per row,
+    the last row's first page redirected to a spare page (CoW)."""
+    rng = np.random.default_rng(seed)
+    max_pages = max(1, -(-max(lengths) // page))
+    n_pages = b * max_pages + 8
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32))
+    bf = torch.bfloat16
+    case = {
+        "q": rand(b, t, kv, g, hd).to(bf),
+        "k_new": rand(b, t, kv, hd).to(bf),
+        "v_new": rand(b, t, kv, hd).to(bf),
+        "block_tables": torch.from_numpy(rng.permutation(n_pages - 8)[
+            :b * max_pages].reshape(b, max_pages).astype(np.int32)),
+        "lengths": torch.tensor(lengths, dtype=torch.int32),
+        "page_map": torch.arange(n_pages, dtype=torch.int32),
+    }
+    case["page_map"][case["block_tables"][-1, 0]] = n_pages - 1
+    kp, vp = rand(n_pages, page, kv, hd), rand(n_pages, page, kv, hd)
+    if quant:
+        for name, fp in (("k", kp), ("v", vp)):
+            sc = fp.abs().amax(dim=(1, 3)) / 127.0 + 1e-8
+            case[f"{name}_pages"] = torch.round(
+                fp / sc[:, None, :, None]).to(torch.int8)
+            case[f"{name}_scales"] = sc
+    else:
+        case["k_pages"], case["v_pages"] = kp.to(bf), vp.to(bf)
+        case["k_scales"] = case["v_scales"] = None
+    return case
+
+
+RAGGED = [0, 1, 16, 17, 333, 700, 1055, 40]
+#: (name, b, t, g, hd, lengths, int8 pools, K3): decode, verify and suffix
+#: prefill at qwen2-1.5b's widths (kv 2, g 6, hd 128), and hd 32 / 64
+PAGED_CASES = [
+    ("decode", 8, 1, 6, 128, RAGGED, False, False),
+    ("decode_int8", 8, 1, 6, 128, RAGGED, True, False),
+    ("k3_decode", 8, 1, 6, 128, RAGGED, False, True),
+    ("verify", 4, 4, 6, 128, [0, 1, 500, 1000], False, False),
+    ("verify_int8", 4, 4, 6, 128, [0, 1, 500, 1000], True, False),
+    ("suffix_prefill", 1, 255, 6, 128, [512], False, False),
+    ("hd32_decode", 3, 1, 2, 32, [0, 700, 33], False, False),
+    ("hd32_verify_int8", 3, 4, 2, 32, [0, 700, 33], True, False),
+    ("hd32_k3", 6, 1, 2, 32, [0, 1, 16, 700, 1055, 333], False, True),
+    ("hd64_t9", 3, 9, 1, 64, [0, 70, 33], False, False),
+    ("hd32_t40_int8", 3, 40, 2, 32, [0, 700, 33], True, False),
+]
+_PAGED_REF = {}
+
+
+def _paged(case, p_terms):
+    name, b, t, g, hd, lengths, quant, cached = case
+    args = paged_inputs(len(name) + hd, b, t, 2, g, hd, lengths, quant)
+    n_split = paged_ops.split_count(b, t, 2, g, H100_SMS)
+    f32 = {k: (v.float() if v is not None and v.dtype == torch.bfloat16
+               else v) for k, v in args.items()}
+    if cached:
+        args.update(k_new=None, v_new=None, page_map=None)
+        if name not in _PAGED_REF:
+            _PAGED_REF[name] = paged_attention_ref(
+                f32["q"][:, 0], f32["k_pages"], f32["v_pages"],
+                f32["block_tables"], f32["lengths"])[:, None]
+    elif name not in _PAGED_REF:
+        _PAGED_REF[name] = paged_chunk_attention_ref(**f32)
+    out = paged_tc(**args, p_terms=p_terms, n_split=n_split)
+    return ratios(out, _PAGED_REF[name], torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
 # measures
 # ---------------------------------------------------------------------------
 
@@ -274,8 +454,39 @@ def test_ssd_one_term_product(product):
         assert max(found.values()) > 0.5, found
 
 
+
+
+@pytest.mark.parametrize("case", PAGED_CASES, ids=lambda c: c[0])
+def test_paged_split_meets_tol_with_margin(case):
+    r = _paged(case, paged_ops.SPLIT_TERMS["P"])
+    assert r["tol"] <= 1.0 and r["raw"] <= 0.5, r
+
+
+def test_paged_one_term_p_misses():
+    """P (times the int8 v-scale) in bf16 alone: the error is reported, and
+    it misses the margin somewhere, so the kernel splits it."""
+    found = {c[0]: _paged(c, 1) for c in PAGED_CASES}
+    print("K1/K3 with one-term P:", found)
+    assert paged_ops.SPLIT_TERMS["P"] > 1
+    assert max(r["raw"] for r in found.values()) > 0.5, found
+
+
+@pytest.mark.parametrize("rows,b,kv,splits", [
+    (6, 32, 2, 8), (24, 4, 2, 16), (1530, 1, 2, 5), (6, 8, 2, 16),
+    (6, 600, 2, 1)])
+def test_paged_split_counts(rows, b, kv, splits):
+    """The bf16 walk's split over the cluster at the main paths' shapes on
+    an H100 (132 SMs): decode b=32, verify 4x4, suffix prefill t=255, a
+    small decode batch (the widest cluster) and a batch that fills the
+    card alone."""
+    assert paged_ops.split_count(b, rows, kv, 1, H100_SMS) == splits
+    assert splits <= paged_ops.MAX_SPLITS
+
+
 @pytest.mark.parametrize("name,terms,pattern", [
     ("flash_attention/csrc/flash_attention.cu", flash_ops.SPLIT_TERMS,
+     r"constexpr int k(\w+)Terms = (\d+);"),
+    ("paged_attention/csrc/paged_chunk_attention.cu", paged_ops.SPLIT_TERMS,
      r"constexpr int k(\w+)Terms = (\d+);"),
     ("ssd_scan/csrc/ssd_scan.cu", ssd_ops.SPLIT_TERMS,
      r"constexpr int k(\w+)Terms = (\d+);")])
@@ -283,3 +494,14 @@ def test_kernel_sources_use_these_term_counts(name, terms, pattern):
     found = re.findall(pattern, (KERNELS / name).read_text())
     assert {k.lower(): int(v) for k, v in found} == {
         k.lower(): v for k, v in terms.items()}
+
+
+def test_paged_wrapper_uses_the_kernel_tiles():
+    """The wrapper picks the split from the kernel's row tiles."""
+    src = (KERNELS / "paged_attention/csrc/paged_chunk_attention.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert paged_ops.ONE_WARP_ROWS == const("TC_ONE_WARP_ROWS")
+    assert paged_ops.TC_ROWS == (16, 16 * const("TC_WARPS"))
+    assert paged_ops.MAX_SPLITS == const("MAX_CLUSTER")
