@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught into success):
    kernels run on the tensor cores);
 2. each hand-written kernel against its plain PyTorch version on the card:
    paged chunk attention (K1) at hd 32/128, f32, bf16 and int8 pools, a CoW
-   ``page_map`` and a zero-length row; flash attention (K2); cached-only
+   ``page_map`` and a zero-length row, at page 16 and page 8, t up to 300
+   (t=8 at g=6 is a speculative verify); flash attention (K2); cached-only
    paged attention (K3) at qwen2-1.5b's widths, b=32, ragged lengths; the
    SSD scan (K4) at mamba2-2.7b's widths (80 heads, P 64, N 128, and N 64),
    s 1000 and 4096, bf16 and f32;
@@ -26,8 +27,8 @@ Phases (any failure exits non-zero; nothing is caught into success):
    4 lazy-CoW branches each, decode steps at batch 32, a speculative
    verify, first-commit-wins, a checkpoint/restore, and a full release;
    first on the fused path, then (path B) on the legacy ``attn_impl="ref"``
-   path for 8 steps; each bf16 K1/K3 call must be one launch, and no split
-   combine kernel may run in the profiled steps;
+   path for 8 steps; each bf16 K1/K3/K2 call must be one launch, and no
+   split combine kernel may run in the profiled steps;
 4. the SSM path at full width (path A): ``mamba2-2.7b`` in bf16 with random
    weights, 4 prompts of 1000-4096 tokens prefilled through the SSD scan,
    each cache snapshotted into its own ``BranchStore`` and forked 8 ways,
@@ -37,8 +38,20 @@ Phases (any failure exits non-zero; nothing is caught into success):
 5. end-to-end parity, card (kernels) against CPU (plain versions): the
    ``paper-agentic`` float32 engine, fused and legacy, identical greedy
    tokens; the mamba2-2.7b widths at 4 layers in float32, the branching
-   cycle, identical tokens and committed state within 1e-4;
-6. the timing of each kernel at the main paths' shapes beside its plain
+   cycle, identical tokens and committed state within 1e-4; a greedy
+   ``BranchSession`` run and a ``speculative_decode`` round, identical
+   tokens and verified prefixes;
+6. the public branch API at full width: ``qwen2-1.5b`` bf16 served through
+   ``BranchSession`` and ``ExplorationDriver`` — 8 prompts (phase 3's),
+   best-of-4 on four, beam search on two, tree search on one and a
+   speculative round on one, in one continuous batch; every exploration
+   must commit one winner per exclusive group, K1/K2 launches must equal
+   their calls, and the pool must drain; the session's step, its host cost
+   outside the engine's decode, and fork/commit latency are printed beside
+   the engine's own; then a pool too small for every fork (one exploration
+   must degrade, the pool must drain), and ``python -m
+   repro_torch.launch.serve --arch qwen2-1.5b`` as a subprocess;
+7. the timing of each kernel at the main paths' shapes beside its plain
    version, the nearest single PyTorch call where one exists, the card's
    bound and the time of each kernel's earlier design (from PERF.md: K2
    and K4 on the CUDA cores, K1 and K3 the CUDA-core page walk); then the
@@ -56,6 +69,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -344,24 +358,30 @@ def phase_kernels(gen) -> None:
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     log("== phase 2: kernels against their plain versions")
-    for hd, g in ((32, 2), (128, 6)):
-        for t in (1, 4, 300):
-            for dtype, quant in ((torch.float32, False),
-                                 (torch.bfloat16, False),
-                                 (torch.bfloat16, True),
-                                 (torch.float32, True)):
-                case = paged_case(gen, b=3, t=t, kv=2, g=g, hd=hd, page=16,
-                                  lengths=[0, 700, 333], dtype=dtype,
-                                  quant=quant, cow=True)
-                out = paged_chunk_attention(**case)
-                torch.cuda.synchronize()
-                c = compare(out, paged_chunk_attention_ref(**case))
-                log(f"K1 paged_chunk_attention hd={hd} t={t} "
-                    f"{str(dtype)[6:]}{' int8-pool' if quant else ''} "
-                    f"cow+zero-length {tol_text(c, dtype)}")
-                if not c["ok"]:
-                    fail("paged_chunk_attention disagrees with its plain "
-                         "version")
+    # t=8 at g=6 is speculative_decode's verify (48 query rows per kv
+    # head); page 8 is the serving CLI's (a bf16 16-key tile spans two
+    # pages there)
+    k1_cases = [(16, hd, g, t, dtype, quant, [0, 700, 333])
+                for hd, g in ((32, 2), (128, 6)) for t in (1, 4, 8, 300)
+                for dtype, quant in ((torch.float32, False),
+                                     (torch.bfloat16, False),
+                                     (torch.bfloat16, True),
+                                     (torch.float32, True))]
+    k1_cases += [(8, hd, g, t, dtype, False, [0, 701, 8, 37])
+                 for hd, g in ((32, 2), (128, 6)) for t in (1, 8)
+                 for dtype in (torch.float32, torch.bfloat16)]
+    for page, hd, g, t, dtype, quant, lengths in k1_cases:
+        case = paged_case(gen, b=len(lengths), t=t, kv=2, g=g, hd=hd,
+                          page=page, lengths=lengths, dtype=dtype,
+                          quant=quant, cow=True)
+        out = paged_chunk_attention(**case)
+        torch.cuda.synchronize()
+        c = compare(out, paged_chunk_attention_ref(**case))
+        log(f"K1 paged_chunk_attention page={page} hd={hd} t={t} "
+            f"{str(dtype)[6:]}{' int8-pool' if quant else ''} "
+            f"cow+zero-length {tol_text(c, dtype)}")
+        if not c["ok"]:
+            fail("paged_chunk_attention disagrees with its plain version")
     for s in (1023, 2048):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = flash_case(gen, s=s, dtype=dtype)
@@ -420,25 +440,38 @@ def zero_launches() -> None:
 
 @contextlib.contextmanager
 def counted_calls():
-    """Count the engine's calls of the two paged-attention wrappers (the
-    names serve_loop bound at import), to hold launches to one per call."""
+    """Count the engine's calls of the two paged-attention wrappers and the
+    prefill's calls of flash attention (the names serve_loop and the
+    model's decode module bound at import), to hold launches to one per
+    call."""
+    from repro_torch.models import decode
     from repro_torch.runtime import serve_loop
 
-    calls = {"paged_chunk_attention": 0, "paged_attention": 0}
-    saved = {name: getattr(serve_loop, name) for name in calls}
+    sites = {"paged_chunk_attention": serve_loop,
+             "paged_attention": serve_loop, "flash_attention": decode}
+    calls = {name: 0 for name in sites}
+    saved = {name: getattr(mod, name) for name, mod in sites.items()}
 
     def counting(name):
         def call(*args, **kwargs):
             calls[name] += 1
             return saved[name](*args, **kwargs)
         return call
-    for name in calls:
-        setattr(serve_loop, name, counting(name))
+    for name, mod in sites.items():
+        setattr(mod, name, counting(name))
     try:
         yield calls
     finally:
-        for name, fn in saved.items():
-            setattr(serve_loop, name, fn)
+        for name, mod in sites.items():
+            setattr(mod, name, saved[name])
+
+
+def launches_match_calls(launches: dict, calls: dict) -> None:
+    """Every bf16 call of an attention wrapper was one kernel launch."""
+    for name, n in calls.items():
+        if launches[name] != n:
+            fail(f"{name}: {launches[name]} launches for {n} bf16 calls "
+                 "(one launch per call expected)")
 
 
 def serve_dense(model, params, *, attn_impl: str, steps: int,
@@ -450,11 +483,8 @@ def serve_dense(model, params, *, attn_impl: str, steps: int,
         res = _serve_dense(model, params, attn_impl=attn_impl, steps=steps,
                            seed=seed)
     launches = res["launches"]
-    log(f"paged-attention calls on the path: {calls}")
-    for name, n in calls.items():
-        if launches[name] != n:
-            fail(f"{name}: {launches[name]} launches for {n} bf16 calls "
-                 "(one launch per call expected)")
+    log(f"attention calls on the path: {calls}")
+    launches_match_calls(launches, calls)
     prof = res["profile"]
     if prof.get("combine_launches_per_step"):
         fail(f"a split combine kernel ran in the bf16 profile: {prof}")
@@ -718,7 +748,8 @@ def phase_ssm(seed: int = 0) -> dict:
     if drift > 0.05:
         fail("the reaped branches' states were not released")
     for toks in res["tokens"]:
-        if len(toks) != 35 or not all(0 <= t < cfg.vocab_size for t in toks):
+        # the prefill's token, 32 timed steps, 3 under the profiler
+        if len(toks) != 36 or not all(0 <= t < cfg.vocab_size for t in toks):
             fail(f"bad branch tokens {toks}")
     for state in res["states"]:
         if not all(torch.isfinite(v).all() for v in state.values()):
@@ -741,19 +772,31 @@ def phase_ssm(seed: int = 0) -> dict:
 
 def profile_steps(step, steps: int = 2) -> dict:
     """Device time by kernel and the idle share over a few steps
-    (torch.profiler; host wall clock around the steps, which sync)."""
+    (torch.profiler; host wall clock around the steps, which sync).  One
+    more step runs first as the profiler's warm-up, traced and dropped:
+    events of a window's first kernels can be lost while the tracer
+    starts (a run on an H100 lost ~112 of 4240)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps),
+                 on_trace_ready=lambda p: traced.append(
+                     p.key_averages())) as prof:
+        step()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
-        wall_us = (time.perf_counter() - t0) * 1e6
+            # before the last prof.step(), which collects the trace
+            wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
     kernels = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    for e in traced[0]:
+        # the schedule's step ranges are annotations, not kernels
+        if (e.device_type != DeviceType.CUDA
+                or e.key.startswith("ProfilerStep")):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -870,6 +913,317 @@ def phase_parity() -> None:
     if max(errs.values()) > 1e-4:
         fail("the committed SSM state differs between card and CPU")
 
+    cfg = dataclasses.replace(get_config("paper-agentic"), dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    runs = {dev: session_parity_run(model, params, dev)
+            for dev in ("cpu", "cuda")}
+    log(f"paper-agentic through BranchSession (greedy fork/commit/finish, "
+        f"one speculative_decode round): tokens identical="
+        f"{runs['cuda'][:2] == runs['cpu'][:2]}, verified prefixes "
+        f"{runs['cuda'][2]} vs {runs['cpu'][2]}")
+    if runs["cuda"] != runs["cpu"]:
+        fail(f"session run: card {runs['cuda']} != cpu {runs['cpu']}")
+
+
+def session_parity_run(model, params, device: str) -> tuple:
+    """The public API greedy on ``device``: a held root forked 3 ways, the
+    children resumed greedy, one committed, the root resumed to its
+    budget; then one ``speculative_decode`` round at temperature 1e-6 (the
+    Gumbel draw cannot move the argmax there, so the drafts are the greedy
+    continuation on either device).  Returns the tokens, the round's
+    tokens and its verified prefixes."""
+    from repro_torch.api import BR_HOLD, EV_FINISHED, BranchSession
+    from repro_torch.explore_ctx import ExplorationDriver, speculative_decode
+    from repro_torch.runtime import ServeEngine
+
+    eng = ServeEngine(model, params, num_pages=128, page_size=4,
+                      max_pages_per_seq=16, device=device)
+    s = BranchSession(eng, max_batch=8, seed=1)
+    root = s.open([5, 17, 3, 42, 7, 11, 2, 9, 30, 4, 8, 1, 22], 12, BR_HOLD)
+    kids = s.branch(root, BR_HOLD, 3)
+    for k in kids:
+        s.resume(k, greedy=True)
+    s.wait(kids, produced=4, require_all=True)
+    s.commit(kids[1])
+    s.resume(root, greedy=True)
+    s.wait([root], events=EV_FINISHED)
+    tokens = s.finish(root)
+    res = ExplorationDriver(s).explore(
+        [9, 8, 7, 6, 5], 12, speculative_decode, n_drafts=3, draft_tokens=8,
+        temperature=1e-6).run()
+    view = s.tree()
+    if view["handles"]["open"] or view["pool"]["pages_free"] != \
+            view["pool"]["pages_total"]:
+        fail(f"the session did not drain on {device}: {view}")
+    return tokens, res.tokens, res.stats["verified_per_draft"]
+
+
+#: the exploration phase's plan, one entry per prompt of phase 3's load:
+#: (policy, its arguments, the request's max_new_tokens)
+EXPLORE_PLAN = (
+    [("best_of_n", dict(n=4, tokens=32), 33)] * 4
+    + [("beam_search", dict(width=3, depth=2, tokens_per_level=8), 17)] * 2
+    + [("tree_search", dict(fan_out=3, max_nodes=9, tokens_per_node=8), 25)]
+    + [("speculative_decode", dict(n_drafts=3, draft_tokens=8), 10)])
+
+
+def explore_run(model, params, prompts, plan, *, num_pages: int,
+                prefix_cache: bool, device: str = "cuda",
+                profile: bool = False) -> dict:
+    """Every prompt through ``ExplorationDriver.explore`` on one
+    ``BranchSession`` (page 16, 128 pages per sequence, max_batch 32),
+    then ``driver.run()``.  Times each session step that decoded and the
+    engine's decode inside it, each ``session.branch``/``commit`` and the
+    ``engine.fork``/``commit`` inside them; with ``profile``, two driver
+    rounds after the first forks run under the profiler instead (left out
+    of the timings and the run's wall time)."""
+    from repro_torch import explore_ctx
+    from repro_torch.api import BranchSession
+    from repro_torch.runtime import ServeEngine
+
+    eng = ServeEngine(model, params, page_size=16, num_pages=num_pages,
+                      max_pages_per_seq=128, prefix_cache=prefix_cache,
+                      device=device)
+    session = BranchSession(eng, max_batch=32, seed=1)
+    driver = explore_ctx.ExplorationDriver(session)
+    t = {k: [] for k in ("step_ms", "decode_ms", "host_ms", "batch",
+                         "branch_us", "branch_n", "fork_us", "commit_us",
+                         "engine_commit_us")}
+    in_decode = [0.0]
+
+    def timed(fn, after):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            after(time.perf_counter() - t0, out)
+            return out
+        return call
+
+    def on_decode(dt, out):
+        in_decode[0] += dt
+
+    def on_step(dt, st):
+        if st["decoded"]:
+            t["step_ms"].append(dt * 1e3)
+            t["decode_ms"].append(in_decode[0] * 1e3)
+            t["host_ms"].append((dt - in_decode[0]) * 1e3)
+            t["batch"].append(st["batch"])
+        in_decode[0] = 0.0
+
+    def on_branch(dt, kids):
+        t["branch_us"].append(dt * 1e6)
+        t["branch_n"].append(len(kids))
+
+    def record(key):
+        return lambda dt, out: t[key].append(dt * 1e6)
+
+    step, decode = session.step, eng.decode
+    eng.decode = timed(eng.decode, on_decode)
+    eng.fork = timed(eng.fork, record("fork_us"))
+    eng.commit = timed(eng.commit, record("engine_commit_us"))
+    session.step = timed(session.step, on_step)
+    session.branch = timed(session.branch, on_branch)
+    session.commit = timed(session.commit, record("commit_us"))
+    exps = [driver.explore(p, budget, getattr(explore_ctx, name),
+                           name=f"{name}-{i}", **kw)
+            for i, (p, (name, kw, budget)) in enumerate(zip(prompts, plan))]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    prof, prof_s = None, 0.0
+    if profile:
+        for _ in range(3):             # admissions, prefills, first forks
+            driver.step()
+        session.step, eng.decode = step, decode
+        p0 = time.perf_counter()
+        prof = profile_steps(driver.step)
+        prof_s = time.perf_counter() - p0
+        session.step = timed(step, on_step)
+        eng.decode = timed(decode, on_decode)
+    driver.run(raise_errors=False)
+    sync()
+    wall = time.perf_counter() - t0 - prof_s
+    for e in exps:
+        if e.error is not None:
+            fail(f"exploration {e.name} failed: {e.error!r}")
+    snap = eng.obs.metrics.snapshot()
+    return {"results": [(e.name, e.result) for e in exps], "timing": t,
+            "wall_s": wall, "driver_steps": driver.steps,
+            "view": session.tree(), "stats": eng.stats(), "metrics": snap,
+            "profile": prof}
+
+
+def decode_control(model, params, prompts, steps: int = 8) -> dict:
+    """The phase's load decoded straight through ``ServeEngine.decode``,
+    in the same process state: phase 3's 32 lazy-CoW branches, ``steps``
+    greedy steps, then ``steps`` sampled ones from a CUDA generator.
+    Returns the step p50 ms of each."""
+    from repro_torch.runtime import ServeEngine
+
+    eng = ServeEngine(model, params, page_size=16, num_pages=2048,
+                      max_pages_per_seq=128, prefix_cache=True)
+    batch = [b for p in prompts for b in eng.fork(eng.add_request(p), 4)]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for name, kw in (("greedy", {}), ("sampled", dict(
+            greedy=False, temperature=1.5, generator=gen))):
+        ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            eng.decode(batch, **kw)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(ms)
+    return out
+
+
+def pcts(xs) -> str:
+    return (f"p50 {np.percentile(xs, 50):.1f} p99 {np.percentile(xs, 99):.1f}"
+            if len(xs) else "none")
+
+
+def phase_explore(seed: int = 0) -> dict:
+    """Phase 6: the public branch API at full width on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    log("== phase 6: the public branch API, qwen2-1.5b bf16, random "
+        "weights: BranchSession + ExplorationDriver")
+    cfg = get_config("qwen2-1.5b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    lens = [1024, 768, 128, 256, 384, 512, 640, 896]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    prompts[1][:512] = prompts[0][:512]        # a shared 512-token head
+    zero_launches()
+    with counted_calls() as calls:
+        run = explore_run(model, params, prompts, EXPLORE_PLAN,
+                          num_pages=2048, prefix_cache=True, profile=True)
+    launches = launch_counts()
+    log(f"attention calls {calls}, launches {launches}")
+    launches_match_calls(launches, calls)
+    if not (launches["paged_chunk_attention"] and launches["flash_attention"]):
+        fail(f"a kernel of the path never launched: {launches}")
+    want_commits = 0
+    for name, res in run["results"]:
+        st = res.stats
+        brief = {k: v for k, v in st.items() if k not in ("scores", "levels")}
+        log(f"{name}: committed={res.committed} generated "
+            f"{len(res.generated)} {json.dumps(brief)}")
+        if not res.committed or st.get("degraded"):
+            fail(f"{name} did not commit a winner: {st}")
+        if st["policy"] == "beam_search":
+            if any(lv.get("degraded") for lv in st["levels"]):
+                fail(f"{name} degraded a level with pages to spare")
+            want_commits += len(st["levels"])
+        elif st["policy"] == "tree_search":
+            if st["branches_created"] != 9:
+                fail(f"{name} created {st['branches_created']} of 9 nodes")
+            want_commits += st["winner_depth"]
+        else:
+            want_commits += 1
+    commits = run["metrics"]["counters"]["kv.commits"]
+    log(f"commits {commits} (one per exclusive group: {want_commits})")
+    if commits != want_commits:
+        fail("an exploration committed other than one winner per group")
+    st, view = run["stats"], run["view"]
+    log(f"after finish: {view['pool']}, handles {view['handles']}, "
+        f"sequences_live {st['sequences_live']}, prefix_pages_cached "
+        f"{st['prefix_pages_cached']}")
+    if (view["handles"]["open"] or st["sequences_live"]
+            or view["pool"]["pages_reserved"] or st["token_tails"]
+            or view["pool"]["pages_free"] + st["prefix_pages_cached"]
+            != view["pool"]["pages_total"]):
+        fail("the pool did not drain (free + prefix-cached pages)")
+    card = card_line()
+    t, hist = run["timing"], run["metrics"]["histograms"]
+    counters = run["metrics"]["counters"]
+    step_p50 = statistics.median(t["step_ms"])
+    decode_p50 = statistics.median(t["decode_ms"])
+    host_p50 = statistics.median(t["host_ms"])
+    decoded = counters["engine.tokens_decoded"]
+    tps = decoded / run["wall_s"]
+    log(f"explore run: {decoded} tokens in {run['wall_s']:.3f} s, "
+        f"{tps:.1f} tokens/s (prefills included, the profiled rounds not), "
+        f"{run['driver_steps']} driver rounds, {len(t['step_ms'])} timed "
+        f"decoding steps ({card})")
+    log(f"session.step ms p50 {step_p50:.3f}; engine.decode inside it p50 "
+        f"{decode_p50:.3f} ms; engine.decode_step_us p50 "
+        f"{hist['engine.decode_step_us']['p50'] / 1e3:.3f} ms (obs "
+        f"histogram, log2 buckets); scheduler + session host ms per step "
+        f"outside engine.decode {pcts(t['host_ms'])} ({card})")
+    log("engine.decode ms by step (rows): " + ", ".join(
+        f"{ms:.1f} ({b})" for ms, b in zip(t["decode_ms"], t["batch"])))
+    per_child = [u / n for u, n in zip(t["branch_us"], t["branch_n"])]
+    log(f"session.branch us per call {pcts(t['branch_us'])}, per child "
+        f"{pcts(per_child)} ({len(t['branch_us'])} calls of "
+        f"{sorted(set(t['branch_n']))} children); engine.fork inside it "
+        f"{pcts(t['fork_us'])} per call; obs engine.fork_us per child p50 "
+        f"{hist['engine.fork_us']['p50']:.1f} p99 "
+        f"{hist['engine.fork_us']['p99']:.1f} ({card})")
+    log(f"session.commit us {pcts(t['commit_us'])} "
+        f"({len(t['commit_us'])} calls); engine.commit inside it "
+        f"{pcts(t['engine_commit_us'])}; obs engine.commit_us p50 "
+        f"{hist['engine.commit_us']['p50']:.1f} p99 "
+        f"{hist['engine.commit_us']['p99']:.1f} ({card})")
+
+    control = decode_control(model, params, prompts)
+    log(f"control, the same load through ServeEngine.decode at b=32 in "
+        f"this process state: greedy step p50 {control['greedy']:.3f} ms, "
+        f"sampled {control['sampled']:.3f} ms ({card})")
+
+    log("-- page pressure: a pool too small for every fork")
+    short = [prompts[0], prompts[2], prompts[3]]
+    zero_launches()
+    with counted_calls() as calls:
+        pressure = explore_run(model, params, short, EXPLORE_PLAN[:3],
+                               num_pages=80, prefix_cache=False)
+    launches_match_calls(launch_counts(), calls)
+    outcome = [(name, res.committed, bool(res.stats.get("degraded")))
+               for name, res in pressure["results"]]
+    view = pressure["view"]
+    log(f"pressure outcomes {outcome}; pool {view['pool']}; handles "
+        f"{view['handles']}")
+    if not any(d for _, _, d in outcome) or not all(
+            c != d for _, c, d in outcome):
+        fail("page pressure degraded no exploration (or one neither "
+             "committed nor degraded)")
+    if (view["handles"]["open"] or view["pool"]["pages_free"]
+            != view["pool"]["pages_total"]):
+        fail("the pool did not drain after the page-pressure run")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tokens_per_s": tps,
+            "step_ms_p50": step_p50, "decode_ms_p50": decode_p50,
+            "host_ms_p50": host_p50, "profile": run["profile"],
+            "control_ms_p50": control}
+
+
+def phase_cli() -> None:
+    """``python -m repro_torch.launch.serve`` on the card, as a user runs
+    it."""
+    log("-- python -m repro_torch.launch.serve --arch qwen2-1.5b "
+        "--requests 2 --branches 4 --tokens 16")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get(
+            "PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2-1.5b", "--requests", "2", "--branches", "4", "--tokens",
+         "16"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=400)
+    for ln in proc.stdout.splitlines():
+        log(f"  | {ln}")
+    log(f"exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    if (proc.returncode != 0
+            or "session tree (procfs view):" not in proc.stdout
+            or "handles: 0 open" not in proc.stdout):
+        log(proc.stderr[-4000:])
+        fail("the serving CLI did not serve on the card")
+
 
 @contextlib.contextmanager
 def forced_splits(n: int):
@@ -885,9 +1239,11 @@ def forced_splits(n: int):
         ops.n_splits = chosen
 
 
-def phase_timing(gen, main: dict, legacy: dict, ssm: dict) -> list:
+def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
+                 explore: dict) -> list:
     """Kernel rows: K1 and K2 at the fused dense path's shapes, K3 at path
-    B's, K4 at path A's."""
+    B's, K4 at path A's; K1's and K2's launches are the fused dense path's
+    and the public API phase's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -899,7 +1255,7 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict) -> list:
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-    log("== phase 6: kernel times at the main paths' shapes "
+    log("== phase 7: kernel times at the main paths' shapes "
         f"({card_line()})")
     timer = Timer()
     rows = []
@@ -956,7 +1312,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict) -> list:
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
                   "paged_chunk_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:260",
-        "launches": main["launches"]["paged_chunk_attention"],
+        "launches": main["launches"]["paged_chunk_attention"]
+        + explore["launches"]["paged_chunk_attention"],
         "max_abs_err": d["max_abs_err"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
@@ -987,7 +1344,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict) -> list:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
-        "launches": main["launches"]["flash_attention"],
+        "launches": main["launches"]["flash_attention"]
+        + explore["launches"]["flash_attention"],
         "max_abs_err": f["max_abs_err"], "ms": f["ms"],
         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
@@ -1090,7 +1448,9 @@ def main() -> None:
     dense, legacy = phase_dense()
     ssm = phase_ssm()
     phase_parity()
-    rows = phase_timing(gen, dense, legacy, ssm)
+    explore = phase_explore()
+    phase_cli()
+    rows = phase_timing(gen, dense, legacy, ssm, explore)
     log(f"total {time.perf_counter() - t0:.1f} s after the build")
     keys = ("prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",
             "launches", "profile")
@@ -1098,6 +1458,11 @@ def main() -> None:
                       ("path B (attn_impl='ref')", legacy),
                       ("path A (mamba2-2.7b)", ssm)):
         log(f"{name}: " + json.dumps({k: res[k] for k in keys}))
+    log("public API phase: " + json.dumps(
+        {k: explore[k] for k in ("tokens_per_s", "step_ms_p50",
+                                 "decode_ms_p50", "host_ms_p50",
+                                 "control_ms_p50", "launches",
+                                 "profile")}))
     print(json.dumps({"kernels": rows}))
     print(card)
     # every phase ran on device 0: the run used one card

@@ -1,0 +1,135 @@
+"""Serving entry point of the port: the ``repro_torch.api`` surface end to end.
+
+The port's copy of ``repro/launch/serve.py``, demo mode.  A stream of
+requests goes through the exploration driver over one
+:class:`~repro_torch.api.BranchSession`: every prompt runs a concurrent
+best-of-N policy (vectorized ``branch()`` through page-budget admission,
+decode branches in the shared continuous batch, score, first-commit-wins
+commit; graceful unforked degradation under page pressure), then the
+session's procfs-style ``tree()`` view is printed::
+
+    python -m repro_torch.launch.serve --arch qwen2-1.5b --branches 4
+
+It runs on the card (``--device`` defaults to ``cuda`` and raises without
+one) and serves ``--arch`` at full width in the config's own dtype, with
+random weights from the port's seeded init.  ``--device cpu`` does what
+the JAX demo does: configs above 1e8 parameters are reduced, float32.
+Both use the JAX demo's engine geometry (page 8, 64 pages per sequence).
+
+Not ported yet, and refused with a non-zero exit rather than served some
+other way: ``--tp`` (tensor-parallel serving, ROADMAP's multi-GPU item)
+and ``--serve`` (the HTTP/SSE front door, ``server/``, ROADMAP's next
+host slice).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+import numpy as np
+import torch
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="paper-agentic")
+    ap.add_argument("--branches", type=int, default=3)
+    ap.add_argument("--tokens", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=2)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=2.0)
+    ap.add_argument("--tp", type=int, default=None,
+                    help="tensor-parallel width (not ported yet: exits 2)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record per-branch lifecycle spans and write a "
+                         "Chrome/Perfetto trace.json here on exit "
+                         "(also prints the one-screen metrics summary)")
+    ap.add_argument("--serve", default=None, metavar="HOST:PORT",
+                    help="the HTTP/SSE front door (not ported yet: "
+                         "exits 2)")
+    ap.add_argument("--tenants", default=None,
+                    metavar="NAME:MAX_CONCURRENT:PRIORITY,...",
+                    help="tenant classes for --serve")
+    ap.add_argument("--num-pages", type=int, default=1024,
+                    help="KV page-pool size (default 1024)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable cross-request KV prefix sharing "
+                         "(on by default: identical prompt prefixes "
+                         "share read-only CoW pages, so best-of-N from "
+                         "N users costs one prefill)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the kernels' plain versions at the JAX demo's "
+                         "reduced size)")
+    args = ap.parse_args(argv)
+    if args.tp is not None:
+        print("--tp: tensor-parallel serving is not ported yet (ROADMAP, "
+              "modules to port: multi-GPU)", file=sys.stderr)
+        return 2
+    if args.serve:
+        print("--serve: the HTTP/SSE front door (server/) is not ported "
+              "yet (ROADMAP, modules to port: the front door)",
+              file=sys.stderr)
+        return 2
+
+    from repro_torch.api import BranchSession
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.device import resolve_device
+    from repro_torch.explore_ctx import ExplorationDriver, best_of_n
+    from repro_torch.models import Model
+    from repro_torch.obs import Observability
+    from repro_torch.runtime import ServeEngine
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if device.type == "cpu":
+        if cfg.param_count() > 1e8:  # big archs run reduced on CPU demo
+            cfg = reduced(cfg)
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    engine = ServeEngine(model, params, num_pages=args.num_pages,
+                         page_size=8, max_pages_per_seq=64,
+                         prefix_cache=not args.no_prefix_cache,
+                         obs=Observability(trace=args.trace is not None),
+                         device=device)
+    session = BranchSession(engine, max_batch=args.max_batch, seed=1)
+    driver = ExplorationDriver(session)
+
+    prompts = {}
+    for r in range(args.requests):
+        prompt = [int(t) for t in np.random.default_rng(r).integers(
+            1, cfg.vocab_size, size=6)]
+        exp = driver.explore(prompt, max_new_tokens=args.tokens + 1,
+                             policy=best_of_n, n=args.branches,
+                             tokens=args.tokens,
+                             temperature=args.temperature,
+                             name=f"request-{r}")
+        prompts[exp] = prompt
+    # an infeasible request fails only its own exploration: report it
+    # per-request and serve the rest
+    driver.run(raise_errors=False)
+
+    for r, (exp, prompt) in enumerate(prompts.items()):
+        if exp.error is not None:
+            print(f"request {r}: not served ({exp.error}); skipped")
+            continue
+        res = exp.result
+        scores = [f"{s:.1f}" for s in res.stats.get("scores", [])]
+        note = " (degraded: page pressure)" if res.stats.get("degraded") \
+            else ""
+        print(f"request {r}: prompt {prompt} -> {res.generated} "
+              f"(best of {res.stats.get('branches', 0)}, "
+              f"scores {scores}){note}")
+    print("session tree (procfs view):")
+    print(session.format_tree(metrics=args.trace is not None))
+    if args.trace:
+        session.trace(args.trace)
+        print(f"wrote {args.trace} — open at https://ui.perfetto.dev")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -115,6 +115,27 @@ def test_paged_chunk_attention_tensor_cores(gen, hd, g, t, quant):
                                **TOL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [1, 8])
+@pytest.mark.parametrize("hd,g", [(32, 2), (128, 6)], ids=str)
+def test_paged_chunk_attention_at_page_8(gen, hd, g, t, dtype):
+    # page 8 (the serving CLI's): a bf16 16-key tile spans two pages, and
+    # t=8 at g=6 is speculative_decode's verify (48 rows: 64-row blocks);
+    # rows of one page, a partial tail, a CoW redirect and zero length
+    case = paged_case(gen, 4, t, 2, g, hd, 8, [0, 701, 8, 37], dtype, False)
+    tc = dtype == torch.bfloat16
+    split = not tc and paged_ops.n_splits(4, t, 2, g, torch.device("cuda"),
+                                          False) > 1
+    before = paged_ops.LAUNCHES[paged_ops.NAME]
+    out = paged_ops.paged_chunk_attention(**case)
+    torch.cuda.synchronize()
+    assert paged_ops.LAUNCHES[paged_ops.NAME] == before + 1 + split
+    torch.testing.assert_close(out.float(),
+                               paged_chunk_attention_ref(**case).float(),
+                               **TOL[dtype])
+
+
 @pytest.mark.parametrize("splits", [1, 3, 9, 16])
 def test_paged_chunk_attention_split_walk(gen, monkeypatch, splits):
     # the decode step's shape: 32 rows of uneven lengths, so split ranges
