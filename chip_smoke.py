@@ -17,10 +17,11 @@ Phases (any failure exits non-zero; nothing is caught into success):
 2. each hand-written kernel against its plain PyTorch version on the card:
    paged chunk attention (K1) at hd 32/128, f32, bf16 and int8 pools, a CoW
    ``page_map`` and a zero-length row, at page 16 and page 8, t up to 300
-   (t=8 at g=6 is a speculative verify); flash attention (K2); cached-only
-   paged attention (K3) at qwen2-1.5b's widths, b=32, ragged lengths; the
-   SSD scan (K4) at mamba2-2.7b's widths (80 heads, P 64, N 128, and N 64),
-   s 1000 and 4096, bf16 and f32;
+   (t=8 at g=6 is a speculative verify), and at page 4 (the front door's
+   parity geometry: t 1, 4 and 37); flash attention (K2); cached-only
+   paged attention (K3) at qwen2-1.5b's widths, b=32, ragged lengths,
+   pages 16 and 4; the SSD scan (K4) at mamba2-2.7b's widths (80 heads,
+   P 64, N 128, and N 64), s 1000 and 4096, bf16 and f32;
 3. the dense path at full width: ``qwen2-1.5b`` in bf16 with random weights
    from the port's seeded init, served by ``ServeEngine`` — 8 prompts of
    128-1024 tokens (two share a 512-token head, so one suffix prefill runs),
@@ -40,7 +41,10 @@ Phases (any failure exits non-zero; nothing is caught into success):
    tokens; the mamba2-2.7b widths at 4 layers in float32, the branching
    cycle, identical tokens and committed state within 1e-4; a greedy
    ``BranchSession`` run and a ``speculative_decode`` round, identical
-   tokens and verified prefixes;
+   tokens and verified prefixes; the front door in process
+   (``FrontDoor.dispatch``, page 4): a greedy ``/v1/generate`` stream with
+   identical events and tokens, and a ``best_of_n`` ``/v1/explore`` that
+   commits exactly one winner and drains the pool on either device;
 6. the public branch API at full width: ``qwen2-1.5b`` bf16 served through
    ``BranchSession`` and ``ExplorationDriver`` — 8 prompts (phase 3's),
    best-of-4 on four, beam search on two, tree search on one and a
@@ -51,7 +55,29 @@ Phases (any failure exits non-zero; nothing is caught into success):
    the engine's own; then a pool too small for every fork (one exploration
    must degrade, the pool must drain), and ``python -m
    repro_torch.launch.serve --arch qwen2-1.5b`` as a subprocess;
-7. the timing of each kernel at the main paths' shapes beside its plain
+7. the HTTP/SSE front door at full width: ``qwen2-1.5b`` bf16 behind
+   ``FrontDoor.serve`` on a local socket, tenants ``interactive`` (16 live,
+   priority 2) and ``batch`` (8 live, priority 1, a page quota of one
+   hold); eight concurrent ``ServeClient`` requests on phase 3's prompts
+   (4 streamed greedy ``/v1/generate``, 2 ``best_of_n``, 1 ``beam``, 1
+   held ``batch`` request), a ``batch`` request over quota (429, the
+   scheduler's ledger untouched), ``/metrics``, ``/v1/tenants``, the tree
+   and ``/healthz``, then a drain with a stream in flight (it finishes, the
+   hold is evicted, new work answers 503, the pool drains); the time to
+   first token, tokens/s and the engine loop's ms per step beside
+   ``session.step``'s are printed; then an 80-page pool where held
+   ``batch`` requests are demoted to seat the waiting chats (no lossy
+   preemption) and the drain's eviction events carry their chains; then
+   ``python -m repro_torch.launch.serve --serve 127.0.0.1:0`` as a
+   subprocess, two requests, SIGINT, a clean drain;
+8. ``repro_torch.core.explore`` on the card under
+   ``torch.cuda.set_sync_debug_mode("error")``: the winner is the argmin
+   of ``aux``, the origin is kept when nothing succeeds, gradient descent
+   converges, and a key gives the CPU's bits;
+9. BranchFS on the card's host: ``create`` µs over bases of 10 to 10 000
+   files, ``commit`` µs for 1 to 100 modified files, each commit leaving
+   its sibling stale;
+10. the timing of each kernel at the main paths' shapes beside its plain
    version, the nearest single PyTorch call where one exists, the card's
    bound and the time of each kernel's earlier design (from PERF.md: K2
    and K4 on the CUDA cores, K1 and K3 the CUDA-core page walk); then the
@@ -66,6 +92,7 @@ It needs nothing but the checkout: no network, no weights on disk.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
 import json
@@ -370,6 +397,11 @@ def phase_kernels(gen) -> None:
     k1_cases += [(8, hd, g, t, dtype, False, [0, 701, 8, 37])
                  for hd, g in ((32, 2), (128, 6)) for t in (1, 8)
                  for dtype in (torch.float32, torch.bfloat16)]
+    # page 4 is the front door's parity geometry (a 16-key tile spans four
+    # pages): decode, a verify of 4 and a 37-token suffix prefill
+    k1_cases += [(4, hd, g, t, dtype, False, [0, 701, 4, 37])
+                 for hd, g in ((32, 2), (128, 6)) for t in (1, 4, 37)
+                 for dtype in (torch.float32, torch.bfloat16)]
     for page, hd, g, t, dtype, quant, lengths in k1_cases:
         case = paged_case(gen, b=len(lengths), t=t, kv=2, g=g, hd=hd,
                           page=page, lengths=lengths, dtype=dtype,
@@ -392,17 +424,19 @@ def phase_kernels(gen) -> None:
                 f"{str(dtype)[6:]} {tol_text(c, dtype)}")
             if not c["ok"]:
                 fail("flash_attention disagrees with its plain version")
-    for dtype in (torch.bfloat16, torch.float32):
+    for page, dtype in ((16, torch.bfloat16), (16, torch.float32),
+                        (4, torch.bfloat16), (4, torch.float32)):
         lengths = ragged_lengths(gen, 32, 1055)
         case = cached_case(paged_case(gen, b=32, t=1, kv=2, g=6, hd=128,
-                                      page=16, lengths=lengths, dtype=dtype))
+                                      page=page, lengths=lengths,
+                                      dtype=dtype))
         out = paged_attention(**case)
         torch.cuda.synchronize()
         c = compare(out, paged_attention_ref(**case))
         zero = not out[0].any()
-        log(f"K3 paged_attention b=32 kv=2 g=6 hd=128 lengths 0..1055 "
-            f"{str(dtype)[6:]} {tol_text(c, dtype)}, zero-length row 0: "
-            f"{zero}")
+        log(f"K3 paged_attention page={page} b=32 kv=2 g=6 hd=128 lengths "
+            f"0..1055 {str(dtype)[6:]} {tol_text(c, dtype)}, zero-length "
+            f"row 0: {zero}")
         if not c["ok"] or not zero:
             fail("paged_attention disagrees with its plain version")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -925,6 +959,23 @@ def phase_parity() -> None:
     if runs["cuda"] != runs["cpu"]:
         fail(f"session run: card {runs['cuda']} != cpu {runs['cpu']}")
 
+    runs = {dev: asyncio.run(front_door_parity_run(model, params, dev))
+            for dev in ("cpu", "cuda")}
+    gen_same = runs["cuda"]["generate"] == runs["cpu"]["generate"]
+    log(f"paper-agentic through FrontDoor.dispatch (page 4): greedy "
+        f"/v1/generate events identical={gen_same} "
+        f"({[e for e, _ in runs['cuda']['generate']]}); /v1/explore "
+        f"best_of_n: card {runs['cuda']['explore']}, cpu "
+        f"{runs['cpu']['explore']}")
+    if not gen_same:
+        fail(f"front door: card {runs['cuda']['generate']} != cpu "
+             f"{runs['cpu']['generate']}")
+    for dev, run in runs.items():
+        if run["explore"] != {"status": 200, "event": "result",
+                              "committed": True, "commits": 1,
+                              "drained": True}:
+            fail(f"front door /v1/explore on {dev}: {run['explore']}")
+
 
 def session_parity_run(model, params, device: str) -> tuple:
     """The public API greedy on ``device``: a held root forked 3 ways, the
@@ -957,6 +1008,47 @@ def session_parity_run(model, params, device: str) -> tuple:
             view["pool"]["pages_total"]:
         fail(f"the session did not drain on {device}: {view}")
     return tokens, res.tokens, res.stats["verified_per_draft"]
+
+
+async def front_door_parity_run(model, params, device: str) -> dict:
+    """The front door in process on ``device`` (the reference's server
+    geometry: page 4, 128 pages, 16 per sequence, ``BranchSession(max_batch
+    =8, seed=11)``): a streamed greedy ``/v1/generate`` (every event), then
+    a ``/v1/explore`` best_of_n, which must commit exactly one winner and
+    leave the pool drained."""
+    from repro_torch.api import BranchSession
+    from repro_torch.runtime import ServeEngine
+    from repro_torch.server import FrontDoor
+
+    eng = ServeEngine(model, params, num_pages=128, page_size=4,
+                      max_pages_per_seq=16, device=device)
+    fd = FrontDoor(BranchSession(eng, max_batch=8, seed=11), [])
+    await fd.start_backend()
+    try:
+        resp = await fd.dispatch("POST", "/v1/generate", {
+            "prompt": [5, 17, 3, 42, 7, 11, 2, 9, 30, 4, 8, 1, 22],
+            "max_new_tokens": 12})
+        events = [item async for item in resp.events]
+        names = [e for e, _ in events]
+        if (names[0] != "admitted" or names[-1] != "finished"
+                or set(names[1:-1]) != {"token"}
+                or len(events[-1][1]["generated"]) != 12):
+            fail(f"front door on {device}: events {events}")
+        commits = eng.obs.metrics.counter("kv.commits").value
+        resp = await fd.dispatch("POST", "/v1/explore", {
+            "prompt": [7, 8, 9], "policy": "best_of_n",
+            "max_new_tokens": 12, "params": {"n": 3, "tokens": 6},
+            "stream": False})
+        pool = await fd.mux.call(lambda s: s.tree()["pool"])
+        explore = {
+            "status": resp.status, "event": resp.body.get("event"),
+            "committed": resp.body.get("result", {}).get("committed"),
+            "commits": eng.obs.metrics.counter("kv.commits").value - commits,
+            "drained": pool["pages_free"] == pool["pages_total"]
+            and pool["pages_reserved"] == 0}
+    finally:
+        await fd.shutdown(drain=True, timeout=60)
+    return {"generate": events, "explore": explore}
 
 
 #: the exploration phase's plan, one entry per prompt of phase 3's load:
@@ -1205,15 +1297,11 @@ def phase_cli() -> None:
     it."""
     log("-- python -m repro_torch.launch.serve --arch qwen2-1.5b "
         "--requests 2 --branches 4 --tokens 16")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get(
-            "PYTHONPATH") else []))
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "qwen2-1.5b", "--requests", "2", "--branches", "4", "--tokens",
-         "16"], cwd=ROOT, env=env, capture_output=True, text=True,
+         "16"], cwd=ROOT, env=src_env(), capture_output=True, text=True,
         timeout=400)
     for ln in proc.stdout.splitlines():
         log(f"  | {ln}")
@@ -1223,6 +1311,524 @@ def phase_cli() -> None:
             or "handles: 0 open" not in proc.stdout):
         log(proc.stderr[-4000:])
         fail("the serving CLI did not serve on the card")
+
+
+#: the front door's load, one entry per prompt of phase 3's: (endpoint,
+#: tenant, body beyond the prompt)
+FRONT_DOOR_PLAN = (
+    [("generate", "interactive", dict(max_new_tokens=32))] * 4
+    + [("explore", "interactive", dict(
+        policy="best_of_n", max_new_tokens=33,
+        params={"n": 4, "tokens": 32}))] * 2
+    + [("explore", "interactive", dict(
+        policy="beam", max_new_tokens=17,
+        params={"width": 3, "depth": 2, "tokens_per_level": 8}))]
+    + [("hold", "batch", dict(max_new_tokens=32))])
+
+
+def front_door(model, params, *, num_pages: int, prefix_cache: bool,
+               tenants: list, device: str = "cuda"):
+    """A ``FrontDoor`` over a full-width ``BranchSession`` on the card
+    (page 16, 128 pages per sequence, max_batch 32), with the engine
+    thread's loop timed: each iteration that stepped gives the loop's ms
+    (pressure relief, ``driver.step``, publishing) beside the
+    ``session.step`` ms inside it."""
+    from repro_torch.api import BranchSession
+    from repro_torch.runtime import ServeEngine
+    from repro_torch.server import FrontDoor
+
+    eng = ServeEngine(model, params, page_size=16, num_pages=num_pages,
+                      max_pages_per_seq=128, prefix_cache=prefix_cache,
+                      device=device)
+    session = BranchSession(eng, max_batch=32, seed=1)
+    fd = FrontDoor(session, tenants)
+    # per stepped iteration: {"loop": relief + driver.step + publish,
+    # "driver": driver.step, "session": session.step inside driver.step}
+    steps, relief, in_session = [], [0.0], [0.0]
+
+    def timed(fn, after):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            after(time.perf_counter() - t0)
+            return out
+        return call
+
+    def on_relieve(dt):
+        relief[0] = dt
+
+    def on_session(dt):
+        in_session[0] += dt
+
+    def on_driver(dt):
+        steps.append({"loop": relief[0] + dt, "driver": dt,
+                      "session": in_session[0], "published": False})
+        in_session[0] = 0.0
+
+    def on_publish(dt):
+        if steps and not steps[-1]["published"]:
+            steps[-1]["loop"] += dt
+            steps[-1]["published"] = True
+
+    fd.mux._relieve_pressure = timed(fd.mux._relieve_pressure, on_relieve)
+    fd.driver.step = timed(fd.driver.step, on_driver)
+    fd.mux._publish = timed(fd.mux._publish, on_publish)
+    session.step = timed(session.step, on_session)
+    return fd, eng, steps
+
+
+async def consume(events, t0: float) -> dict:
+    """Every SSE event of one stream: names, the client-clock time to the
+    first ``token`` event, and the terminal event."""
+    out = {"names": [], "ttft_s": None, "final": None, "tokens": 0}
+    async for event, data in events:
+        out["names"].append(event)
+        if event == "token":
+            out["tokens"] += len(data["tokens"])
+            if out["ttft_s"] is None:
+                out["ttft_s"] = time.perf_counter() - t0
+        if event in ("finished", "result", "evicted", "error"):
+            out["final"] = (event, data)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def ledger(session) -> tuple:
+    c = session.obs.metrics.snapshot()["counters"]
+    return (c.get("sched.submitted", 0), c.get("sched.rejected", 0),
+            session.sched.stats()["pages_reserved"])
+
+
+async def front_door_run(fd, prompts, steps: list) -> dict:
+    """Phase 7's main run over real sockets: the plan's eight clients at
+    once, a ``batch`` request beyond its page quota (429, ledger
+    untouched), the introspection endpoints, then a drain with one stream
+    in flight."""
+    from repro_torch.server import ServeClient, ServeError
+
+    server = await fd.serve("127.0.0.1", 0)
+    client = ServeClient(f"http://127.0.0.1:"
+                         f"{server.sockets[0].getsockname()[1]}")
+    t0 = time.perf_counter()
+    jobs = []
+    for prompt, (kind, tenant, body) in zip(prompts, FRONT_DOOR_PLAN):
+        if kind == "generate":
+            jobs.append(consume(client.generate_events(
+                prompt, tenant=tenant, **body), t0))
+        elif kind == "explore":
+            jobs.append(consume(client.explore_events(
+                prompt, tenant=tenant, **body), t0))
+        else:
+            jobs.append(client.hold(prompt, tenant=tenant, **body))
+    results = await asyncio.gather(*jobs)
+    wall = time.perf_counter() - t0
+    # the concurrent run's counters and engine steps (the hold is parked:
+    # nothing steps until the drain's stream below)
+    counters = await fd.mux.call(
+        lambda s: s.obs.metrics.snapshot()["counters"])
+    n_steps = await fd.mux.call(lambda s: len(steps))
+    streams, held = results[:-1], results[-1]
+    for (kind, _, body), res in zip(FRONT_DOOR_PLAN, streams):
+        event, data = res["final"]
+        if kind == "generate" and (
+                res["names"][0] != "admitted" or event != "finished"
+                or len(data["generated"]) != body["max_new_tokens"]
+                or res["tokens"] != body["max_new_tokens"]):
+            fail(f"a streamed /v1/generate did not finish: {res}")
+        if kind == "explore" and (event != "result"
+                                  or not data["result"]["committed"]):
+            fail(f"a /v1/explore did not commit: {res}")
+    if not held.get("held"):
+        fail(f"the batch hold was not parked: {held}")
+
+    before = await fd.mux.call(ledger)
+    try:
+        await client.hold(prompts[2], tenant="batch", max_new_tokens=32)
+        fail("a batch request beyond its page quota was admitted")
+    except ServeError as err:
+        quota = (err.status, err.body.get("errno"))
+    after = await fd.mux.call(ledger)
+    if quota != (429, "EAGAIN") or after != before:
+        fail(f"quota: {quota}, ledger {before} -> {after}")
+
+    metrics = await client.metrics()
+    tenants = await client.tenants()
+    tree = await client.tree(held["id"])
+    health = await client.health()
+    if ("server.requests" not in metrics or not health["ok"]
+            or tree["kind"] != "parked" or not tree["stat"]["held"]
+            or tenants["tenants"]["batch"]["live"] != 1):
+        fail(f"introspection: health {health}, tree {tree}, tenants "
+             f"{tenants}")
+
+    # a drain with one stream in flight: it finishes, the hold is evicted
+    events = client.generate_events(prompts[3], tenant="interactive",
+                                    max_new_tokens=32)
+    first = await events.__anext__()
+    rest = asyncio.ensure_future(consume(events, time.perf_counter()))
+    stats = await fd.shutdown(drain=True, timeout=120)
+    inflight = await rest
+    refused = await fd.dispatch("POST", "/v1/generate", {
+        "prompt": prompts[3], "max_new_tokens": 4})
+    rec = fd.registry.get(held["id"])
+    if (first[0] != "admitted" or inflight["final"][0] != "finished"
+            or len(inflight["final"][1]["generated"]) != 32):
+        fail(f"the in-flight stream was cut by the drain: {inflight}")
+    if refused.status != 503 or rec.state != "evicted" or stats["evicted"] < 1:
+        fail(f"drain: {stats}, new request {refused.status}, hold "
+             f"{rec.state}")
+    return {"streams": streams, "wall_s": wall, "quota": quota,
+            "drain": stats, "tenants": tenants["tenants"],
+            "health": health, "counters": counters,
+            "steps": steps[:n_steps]}
+
+
+async def until_admitted(fd, sid: int) -> dict:
+    for _ in range(2000):
+        view = (await fd.dispatch("GET", f"/v1/sessions/{sid}/tree")).body
+        if view["state"] == "running":
+            return view
+        await asyncio.sleep(0.01)
+    fail(f"request {sid} was never admitted: {view}")
+
+
+async def pressure_run(fd, prompts) -> dict:
+    """Phase 7's small pool (80 pages of 16, prefix cache off): a batch
+    chat, a batch hold of 1024 tokens, an equal-priority batch chat that
+    cannot fit beside it, a second batch hold, then an interactive chat
+    that cannot fit beside that.  Each seat is won by demoting the held
+    request to the tier store (lossless); nothing is evicted mid-flight;
+    the drain evicts both holds, and each eviction event carries the
+    hold's committed chain."""
+    from repro_torch.server import ServeClient
+
+    server = await fd.serve("127.0.0.1", 0)
+    client = ServeClient(f"http://127.0.0.1:"
+                         f"{server.sockets[0].getsockname()[1]}")
+    done = await client.generate(prompts[2], tenant="batch",
+                                 max_new_tokens=8)
+    h1 = await client.hold(prompts[0], tenant="batch", max_new_tokens=32)
+    await until_admitted(fd, h1["id"])
+    same = await client.generate(prompts[3], tenant="batch",
+                                 max_new_tokens=32)
+    h2 = await client.hold(prompts[6], tenant="batch", max_new_tokens=32)
+    await until_admitted(fd, h2["id"])
+    vip = await client.generate(prompts[1], tenant="interactive",
+                                max_new_tokens=32)
+    views = [await client.tree(h["id"]) for h in (h1, h2)]
+    counters = fd.session.obs.metrics.snapshot()["counters"]
+    for name, res, n in (("batch chat", done, 8), ("equal-priority chat",
+                                                   same, 32),
+                         ("interactive chat", vip, 32)):
+        if res["event"] != "finished" or len(res["generated"]) != n:
+            fail(f"{name} was not served: {res}")
+    if not all(v["demoted"] and v["stat"]["tiered"] and v["state"]
+               == "running" for v in views):
+        fail(f"the holds were not demoted losslessly: {views}")
+    if counters.get("server.preemptions", 0) or \
+            counters["server.demotions"] != 2:
+        fail(f"preemption counters: {counters}")
+    stats = await fd.shutdown(drain=True, timeout=120)
+    evictions = []
+    for h, prompt in ((h1, prompts[0]), (h2, prompts[6])):
+        rec = fd.registry.get(h["id"])
+        items = []
+        while not rec.queue.empty():
+            items.append(rec.queue.get_nowait())
+        names = [i[0] for i in items if i is not None]
+        last = items[-2] if len(items) > 1 else None
+        if (names[:2] != ["admitted", "demoted"] or last[0] != "evicted"
+                or "EV_INVALIDATED" not in last[1]["events"]
+                or last[1]["tokens"] != prompt or items[-1] is not None):
+            fail(f"hold {h['id']}: events {names}, last {last}")
+        evictions.append((names, len(last[1]["tokens"]),
+                          last[1]["reason"]))
+    view = fd.session.tree()
+    if view["handles"]["open"] or view["pool"]["pages_free"] != \
+            view["pool"]["pages_total"]:
+        fail(f"the small pool did not drain: {view}")
+    return {"evictions": evictions, "drain": stats,
+            "demotions": counters["server.demotions"],
+            "sched_demotions": counters["sched.demotions"],
+            "preemptions": counters.get("server.preemptions", 0),
+            "reasons": [v.get("evict_reason") for v in views]}
+
+
+def phase_front_door(seed: int = 0) -> dict:
+    """Phase 7: the HTTP/SSE front door at full width on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.server import TenantConfig
+
+    log("== phase 7: the front door, qwen2-1.5b bf16, random weights: "
+        "FrontDoor.serve + ServeClient over sockets")
+    cfg = get_config("qwen2-1.5b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    lens = [1024, 768, 128, 256, 384, 512, 640, 896]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    prompts[1][:512] = prompts[0][:512]        # a shared 512-token head
+    # batch may reserve what its one hold needs: a second request is 429
+    hold_pages = -(-(lens[7] + 32) // 16)
+    tenants = [TenantConfig("interactive", max_concurrent=16, priority=2),
+               TenantConfig("batch", max_concurrent=8, priority=1,
+                            max_reserved_pages=hold_pages)]
+    fd, eng, steps = front_door(model, params, num_pages=2048,
+                                prefix_cache=True, tenants=tenants)
+    zero_launches()
+    with counted_calls() as calls:
+        run = asyncio.run(front_door_run(fd, prompts, steps))
+    launches = launch_counts()
+    log(f"attention calls {calls}, launches {launches}")
+    launches_match_calls(launches, calls)
+    if not (launches["paged_chunk_attention"] and launches["flash_attention"]):
+        fail(f"a kernel of the path never launched: {launches}")
+    st, view = eng.stats(), fd.session.tree()
+    log(f"after the drain: {view['pool']}, handles {view['handles']}, "
+        f"sequences_live {st['sequences_live']}, prefix_pages_cached "
+        f"{st['prefix_pages_cached']}; drain {run['drain']}; quota "
+        f"{run['quota']}")
+    if (view["handles"]["open"] or st["sequences_live"]
+            or view["pool"]["pages_reserved"] or st["token_tails"]
+            or view["pool"]["pages_free"] + st["prefix_pages_cached"]
+            != view["pool"]["pages_total"]):
+        fail("the pool did not drain (free + prefix-cached pages)")
+    card = card_line()
+    counters = run["counters"]
+    ttft = [r["ttft_s"] * 1e3 for r in run["streams"]]
+    chat_ttft = ttft[:4]
+    decoded = counters["engine.tokens_decoded"]
+    streamed = counters["server.tokens_streamed"]
+    stepped = [s for s in run["steps"] if s["session"]]
+    loop_ms = [s["loop"] * 1e3 for s in stepped]
+    driver_ms = [s["driver"] * 1e3 for s in stepped]
+    sess_ms = [s["session"] * 1e3 for s in stepped]
+    own_ms = [(s["loop"] - s["driver"]) * 1e3 for s in stepped]
+    log(f"front door run: {len(run['streams'])} streams and a hold in "
+        f"{run['wall_s']:.3f} s; {decoded} tokens decoded "
+        f"({decoded / run['wall_s']:.1f} tokens/s), {streamed} streamed "
+        f"({streamed / run['wall_s']:.1f} tokens/s) ({card})")
+    log(f"time to first token ms (client clock, to the first token event): "
+        f"streamed /v1/generate {pcts(chat_ttft)}; every stream "
+        f"{pcts(ttft)} ({card})")
+    log(f"engine loop ms per step {pcts(loop_ms)}; driver.step inside it "
+        f"{pcts(driver_ms)} (admission prefills, policy resumption and "
+        f"forks, session.step); session.step {pcts(sess_ms)}; the "
+        f"multiplexer's own ms per step (loop - driver.step: pressure "
+        f"relief, publishing) {pcts(own_ms)} over {len(loop_ms)} steps "
+        f"({card})")
+
+    log("-- a small pool: demotion seats the waiting chats, the drain "
+        "evicts the holds")
+    fd2, eng2, _ = front_door(model, params, num_pages=80,
+                              prefix_cache=False, tenants=[
+                                  TenantConfig("interactive", 16,
+                                               priority=2),
+                                  TenantConfig("batch", 8, priority=1)])
+    zero_launches()
+    with counted_calls() as calls2:
+        pressure = asyncio.run(pressure_run(fd2, prompts))
+    launches2 = launch_counts()
+    launches_match_calls(launches2, calls2)
+    log(f"small pool: demotions {pressure['demotions']} (scheduler "
+        f"{pressure['sched_demotions']}), lossy preemptions "
+        f"{pressure['preemptions']}; holds' events and eviction at drain "
+        f"{pressure['evictions']}; drain {pressure['drain']}")
+    serve_cli_run()
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": {k: launches[k] + launches2[k] for k in launches},
+            "ttft_ms": {"generate": pcts(chat_ttft), "all": pcts(ttft)},
+            "tokens_per_s": decoded / run["wall_s"],
+            "streamed_per_s": streamed / run["wall_s"],
+            "loop_ms_p50": statistics.median(loop_ms),
+            "driver_step_ms_p50": statistics.median(driver_ms),
+            "session_step_ms_p50": statistics.median(sess_ms),
+            "mux_ms_p50": statistics.median(own_ms),
+            "mux_ms_p99": float(np.percentile(own_ms, 99))}
+
+
+def serve_cli_run() -> None:
+    """``python -m repro_torch.launch.serve --serve 127.0.0.1:0`` on the
+    card: read the address it prints, send two requests with
+    ``ServeClient``, SIGINT, and expect a clean drain."""
+    import signal
+    import threading
+
+    from repro_torch.server import ServeClient
+
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "qwen2-1.5b", "--serve", "127.0.0.1:0", "--tenants",
+            "interactive:16:2"]
+    log("-- " + " ".join(["python"] + argv[1:]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, env=src_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    watchdog = threading.Timer(400, proc.kill)
+    watchdog.start()
+    try:
+        first = proc.stdout.readline().strip()
+        log(f"  | {first}")
+        if not first.startswith("serving on http://"):
+            fail("the --serve CLI did not start: "
+                 f"{proc.stderr.read()[-4000:]}")
+        client = ServeClient(first.split()[2])
+
+        async def two():
+            return await asyncio.gather(
+                client.generate([11, 22, 33, 44], tenant="interactive",
+                                max_new_tokens=16),
+                client.explore([5, 6, 7], policy="best_of_n",
+                               tenant="interactive", max_new_tokens=9,
+                               params={"n": 4, "tokens": 8}))
+        fin, res = asyncio.run(two())
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for ln in out.splitlines():
+        log(f"  | {ln}")
+    log(f"exit {proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+        f"generate {fin['event']} ({len(fin['generated'])} tokens), explore "
+        f"{res['event']} (committed {res['result']['committed']})")
+    if (proc.returncode != 0 or "drained cleanly" not in out
+            or fin["event"] != "finished" or len(fin["generated"]) != 16
+            or res["event"] != "result" or not res["result"]["committed"]):
+        log(err[-4000:])
+        fail("the --serve CLI did not serve and drain on the card")
+
+
+def src_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get(
+            "PYTHONPATH") else []))
+    return env
+
+
+def phase_device_explore() -> dict:
+    """Phase 8: ``repro_torch.core.explore`` on the card, the scenarios of
+    the reference's device-explore tests, every round under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises)."""
+    import importlib
+
+    E = importlib.import_module("repro_torch.core.explore")
+    log("== phase 8: device-side exploration (torch.func.vmap) with no host "
+        "sync")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def noise_step(state, key):
+        noise = E.normal(key, (2,))
+        loss = torch.sum(noise ** 2)
+        return {"x": noise, "loss": loss}, loss < state["loss"], loss
+
+    def stuck_step(state, key):
+        return ({"x": state["x"] + 1}, torch.zeros((), dtype=torch.bool,
+                                                   device=dev),
+                torch.zeros((), device=dev))
+
+    def loss_fn(x):
+        return torch.sum((x - 3.0) ** 2)
+
+    def gd_step(state, key):
+        g = torch.func.grad(loss_fn)(state["x"])
+        new_x = state["x"] - (0.1 + 0.2 * E.uniform(key)) * g
+        return {"x": new_x}, loss_fn(new_x) < loss_fn(state["x"]), \
+            loss_fn(new_x)
+
+    origin = {"x": torch.zeros(2, device=dev),
+              "loss": torch.full((), 100.0, device=dev)}
+    five = {"x": torch.full((2,), 5.0, device=dev)}
+    state = {"x": torch.zeros(4, device=dev)}
+    winners = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = E.explore(noise_step, origin, 4, gen,
+                        commit_time_fn=lambda aux: aux)
+        kept = E.explore(stuck_step, five, 3, gen)
+        for _ in range(25):
+            r = E.explore(gd_step, state, 4, gen,
+                          commit_time_fn=lambda aux: aux)
+            winners.append((r.winner, torch.argmin(r.aux)))
+            state = r.state
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    losses = res.aux.cpu()
+    final = float(loss_fn(state["x"]))
+    bits = E.uniform(torch.tensor([1, 2], device=dev), (2,)).cpu().tolist()
+    out = {"winner": int(res.winner), "argmin": int(torch.argmin(losses)),
+           "committed": bool(res.committed),
+           "kept_origin": bool(torch.equal(kept.state["x"], five["x"]))
+           and not bool(kept.committed),
+           "gd_winners_are_argmin": all(int(w) == int(a)
+                                        for w, a in winners),
+           "gd_final_loss": final, "bits": bits, "ms": ms}
+    log(f"device explore: {json.dumps(out)}")
+    if (out["winner"] != out["argmin"] or not out["committed"]
+            or abs(float(res.state["loss"]) - float(losses.min())) > 1e-6
+            or not out["kept_origin"] or not out["gd_winners_are_argmin"]
+            or final >= 1e-3
+            or bits != [0.10696852207183838, 0.7602502703666687]):
+        fail("device-side exploration disagrees with its invariants")
+    return out
+
+
+def phase_branchfs() -> dict:
+    """Phase 9: BranchFS on the card's host: ``create`` µs over bases of
+    10, 1 000 and 10 000 files, and ``commit`` µs for 1, 10 and 100
+    modified files (each commit must leave its sibling stale)."""
+    import tempfile
+
+    from repro_torch.fs import BranchFS
+
+    log(f"== phase 9: BranchFS on this machine's disk ({os.uname().nodename}"
+        f", {os.cpu_count()} cores)")
+    work = ROOT / "build" / "branchfs_timing"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"create_us": {}, "commit_us": {}}
+    for n in (10, 1_000, 10_000):
+        with tempfile.TemporaryDirectory(dir=work) as td:
+            fs = BranchFS(td)
+            t0 = time.perf_counter()
+            for i in range(n):
+                fs.write("base", f"f{i}", b"x" * 64)
+            build_s = time.perf_counter() - t0
+            create = []
+            for _ in range(200):
+                t0 = time.perf_counter()
+                (b,) = fs.create()
+                create.append((time.perf_counter() - t0) * 1e6)
+                fs.abort(b)
+            out["create_us"][n] = pcts(create)
+            commits = {}
+            for k in (1, 10, 100):
+                us = []
+                for _ in range(20):
+                    mine, sib = fs.create(n=2)
+                    for i in range(k):
+                        fs.write(mine, f"f{i}", b"y" * 64)
+                    t0 = time.perf_counter()
+                    fs.commit(mine)
+                    us.append((time.perf_counter() - t0) * 1e6)
+                    if fs.status(sib) != "stale":
+                        fail(f"commit left sibling {sib} {fs.status(sib)}")
+                commits[k] = pcts(us)
+            out["commit_us"][n] = commits
+            fs.close()
+        log(f"base {n} files (built in {build_s:.1f} s): create us "
+            f"{out['create_us'][n]}; commit us by modified files "
+            f"{commits}")
+    return out
 
 
 @contextlib.contextmanager
@@ -1240,10 +1846,10 @@ def forced_splits(n: int):
 
 
 def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
-                 explore: dict) -> list:
+                 explore: dict, door: dict) -> list:
     """Kernel rows: K1 and K2 at the fused dense path's shapes, K3 at path
-    B's, K4 at path A's; K1's and K2's launches are the fused dense path's
-    and the public API phase's."""
+    B's, K4 at path A's; K1's and K2's launches are the fused dense
+    path's, the public API phase's and the front door's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1255,7 +1861,7 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-    log("== phase 7: kernel times at the main paths' shapes "
+    log("== phase 10: kernel times at the main paths' shapes "
         f"({card_line()})")
     timer = Timer()
     rows = []
@@ -1313,7 +1919,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
                   "paged_chunk_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:260",
         "launches": main["launches"]["paged_chunk_attention"]
-        + explore["launches"]["paged_chunk_attention"],
+        + explore["launches"]["paged_chunk_attention"]
+        + door["launches"]["paged_chunk_attention"],
         "max_abs_err": d["max_abs_err"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
@@ -1345,7 +1952,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
         "launches": main["launches"]["flash_attention"]
-        + explore["launches"]["flash_attention"],
+        + explore["launches"]["flash_attention"]
+        + door["launches"]["flash_attention"],
         "max_abs_err": f["max_abs_err"], "ms": f["ms"],
         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
@@ -1450,7 +2058,10 @@ def main() -> None:
     phase_parity()
     explore = phase_explore()
     phase_cli()
-    rows = phase_timing(gen, dense, legacy, ssm, explore)
+    door = phase_front_door()
+    device_explore = phase_device_explore()
+    fs = phase_branchfs()
+    rows = phase_timing(gen, dense, legacy, ssm, explore, door)
     log(f"total {time.perf_counter() - t0:.1f} s after the build")
     keys = ("prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",
             "launches", "profile")
@@ -1463,6 +2074,9 @@ def main() -> None:
                                  "decode_ms_p50", "host_ms_p50",
                                  "control_ms_p50", "launches",
                                  "profile")}))
+    log("front door phase: " + json.dumps(door))
+    log("device explore: " + json.dumps(device_explore))
+    log(f"BranchFS ({os.uname().nodename}): " + json.dumps(fs))
     print(json.dumps({"kernels": rows}))
     print(card)
     # every phase ran on device 0: the run used one card

@@ -16,10 +16,19 @@ random weights from the port's seeded init.  ``--device cpu`` does what
 the JAX demo does: configs above 1e8 parameters are reduced, float32.
 Both use the JAX demo's engine geometry (page 8, 64 pages per sequence).
 
+``--serve host:port`` starts the multi-tenant HTTP/SSE front door
+(:mod:`repro_torch.server`) instead of the demo: one engine loop serves
+every tenant's ``/v1/generate`` and ``/v1/explore`` traffic until
+SIGINT/SIGTERM, then drains gracefully (in-flight decodes finish; parked
+reservations are evicted) and exits 0.  Port 0 binds a free port; the
+address is printed on the ``serving on http://...`` line.
+``--tenants name:max_concurrent:priority,...`` registers tenant classes::
+
+    python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --serve 127.0.0.1:8777 --tenants vip:16:3,batch:32:1
+
 Not ported yet, and refused with a non-zero exit rather than served some
-other way: ``--tp`` (tensor-parallel serving, ROADMAP's multi-GPU item)
-and ``--serve`` (the HTTP/SSE front door, ``server/``, ROADMAP's next
-host slice).
+other way: ``--tp`` (tensor-parallel serving, ROADMAP's multi-GPU item).
 """
 
 from __future__ import annotations
@@ -47,11 +56,13 @@ def main(argv=None) -> int:
                          "Chrome/Perfetto trace.json here on exit "
                          "(also prints the one-screen metrics summary)")
     ap.add_argument("--serve", default=None, metavar="HOST:PORT",
-                    help="the HTTP/SSE front door (not ported yet: "
-                         "exits 2)")
+                    help="run the multi-tenant HTTP/SSE front door "
+                         "instead of the demo (SIGINT/SIGTERM drains "
+                         "gracefully)")
     ap.add_argument("--tenants", default=None,
                     metavar="NAME:MAX_CONCURRENT:PRIORITY,...",
-                    help="tenant classes for --serve")
+                    help="tenant classes for --serve (unknown tenants "
+                         "get the default class)")
     ap.add_argument("--num-pages", type=int, default=1024,
                     help="KV page-pool size (default 1024)")
     ap.add_argument("--no-prefix-cache", action="store_true",
@@ -67,11 +78,6 @@ def main(argv=None) -> int:
     if args.tp is not None:
         print("--tp: tensor-parallel serving is not ported yet (ROADMAP, "
               "modules to port: multi-GPU)", file=sys.stderr)
-        return 2
-    if args.serve:
-        print("--serve: the HTTP/SSE front door (server/) is not ported "
-              "yet (ROADMAP, modules to port: the front door)",
-              file=sys.stderr)
         return 2
 
     from repro_torch.api import BranchSession
@@ -96,6 +102,8 @@ def main(argv=None) -> int:
                          obs=Observability(trace=args.trace is not None),
                          device=device)
     session = BranchSession(engine, max_batch=args.max_batch, seed=1)
+    if args.serve:
+        return _serve_front_door(session, args)
     driver = ExplorationDriver(session)
 
     prompts = {}
@@ -128,6 +136,57 @@ def main(argv=None) -> int:
     if args.trace:
         session.trace(args.trace)
         print(f"wrote {args.trace} — open at https://ui.perfetto.dev")
+    return 0
+
+
+def _parse_tenants(spec):
+    """``name:max_concurrent:priority,...`` → TenantConfig list."""
+    from repro_torch.server import TenantConfig
+
+    out = []
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        fields = part.split(":")
+        name = fields[0]
+        max_conc = int(fields[1]) if len(fields) > 1 else 16
+        priority = int(fields[2]) if len(fields) > 2 else 1
+        out.append(TenantConfig(name, max_concurrent=max_conc,
+                                priority=priority))
+    return out
+
+
+def _serve_front_door(session, args) -> int:
+    import asyncio
+    import signal
+
+    from repro_torch.server import FrontDoor
+
+    host, _, port = args.serve.rpartition(":")
+    host = host or "127.0.0.1"
+    fd = FrontDoor(session, _parse_tenants(args.tenants))
+
+    async def run() -> None:
+        server = await fd.serve(host, int(port))
+        addr = server.sockets[0].getsockname()
+        print(f"serving on http://{addr[0]}:{addr[1]} "
+              f"(tenants: {[t.name for t in fd.tenancy.tenants()]})",
+              flush=True)
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
+        await stop.wait()
+        print("draining...", flush=True)
+        stats = await fd.shutdown(drain=True)
+        print(f"drained cleanly ({stats['evicted']} parked/stale "
+              "evicted)", flush=True)
+        if args.trace:
+            session.trace(args.trace)
+            print(f"wrote {args.trace}", flush=True)
+
+    asyncio.run(run())
     return 0
 
 

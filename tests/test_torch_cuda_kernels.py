@@ -136,6 +136,27 @@ def test_paged_chunk_attention_at_page_8(gen, hd, g, t, dtype):
                                **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [1, 4, 37])
+@pytest.mark.parametrize("hd,g", [(32, 2), (128, 6)], ids=str)
+def test_paged_chunk_attention_at_page_4(gen, hd, g, t, dtype):
+    # page 4 (the front door's parity geometry): a bf16 16-key tile spans
+    # four pages; decode, a verify of 4 and a 37-token suffix prefill over
+    # rows of one page, a partial tail, a CoW redirect and zero length
+    case = paged_case(gen, 4, t, 2, g, hd, 4, [0, 701, 4, 37], dtype, False)
+    tc = dtype == torch.bfloat16
+    split = not tc and paged_ops.n_splits(4, t, 2, g, torch.device("cuda"),
+                                          False) > 1
+    before = paged_ops.LAUNCHES[paged_ops.NAME]
+    out = paged_ops.paged_chunk_attention(**case)
+    torch.cuda.synchronize()
+    assert paged_ops.LAUNCHES[paged_ops.NAME] == before + 1 + split
+    torch.testing.assert_close(out.float(),
+                               paged_chunk_attention_ref(**case).float(),
+                               **TOL[dtype])
+
+
 @pytest.mark.parametrize("splits", [1, 3, 9, 16])
 def test_paged_chunk_attention_split_walk(gen, monkeypatch, splits):
     # the decode step's shape: 32 rows of uneven lengths, so split ranges
@@ -249,6 +270,28 @@ def test_paged_attention_kernel(gen, hd, g, dtype):
     # NaN), a full last page; split or not as the wrapper decides
     lengths = [0, 1, 16, 700, 1055, 333]
     case = paged_case(gen, 6, 1, 2, g, hd, 16, lengths, dtype, False)
+    args = dict(q=case["q"][:, 0].contiguous(), k_pages=case["k_pages"],
+                v_pages=case["v_pages"], block_tables=case["block_tables"],
+                lengths=case["lengths"])
+    split = dtype == torch.float32 and paged_ops.n_splits(
+        6, 1, 2, g, torch.device("cuda"), False) > 1
+    before = paged_ops.LAUNCHES[paged_ops.CACHED_NAME]
+    out = paged_ops.paged_attention(**args)
+    torch.cuda.synchronize()
+    assert paged_ops.LAUNCHES[paged_ops.CACHED_NAME] == before + 1 + split
+    assert not out[0].any()
+    torch.testing.assert_close(out.float(),
+                               paged_attention_ref(**args).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd,g", [(32, 2), (128, 6)], ids=str)
+def test_paged_attention_kernel_at_page_4(gen, hd, g, dtype):
+    # the cached-only walk at page 4: every 16-key tile spans four pages
+    lengths = [0, 1, 4, 701, 37, 333]
+    case = paged_case(gen, 6, 1, 2, g, hd, 4, lengths, dtype, False)
     args = dict(q=case["q"][:, 0].contiguous(), k_pages=case["k_pages"],
                 v_pages=case["v_pages"], block_tables=case["block_tables"],
                 lengths=case["lengths"])

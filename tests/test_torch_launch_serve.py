@@ -8,17 +8,29 @@ packages draw their random weights and their sampling noise from
 different streams, so the output is compared line for line on structure:
 each request line's prompt, generated length, branch count, score count
 and degradation note, and every line of the session's procfs view (the
-branch forest and the pool/handle summary) exactly.
+branch forest and the pool/handle summary) exactly.  In ``--serve`` mode
+both run as subprocesses on port 0: the address line, one request through
+``ServeClient``, and the drain after SIGINT are compared the same way.
 """
 
+import asyncio
 import json
+import os
 import re
+import signal
+import subprocess
+import sys
+import threading
+from pathlib import Path
 
 import pytest
 import torch
 
 from repro.launch import serve as jax_cli
 from repro_torch.launch import serve as port_cli
+from repro_torch.server import ServeClient
+
+ROOT = Path(__file__).resolve().parents[1]
 
 REQUEST = re.compile(r"request (\d+): prompt (\[[^\]]*\]) -> (\[[^\]]*\]) "
                      r"\(best of (\d+), scores (\[[^\]]*\])\)(.*)$")
@@ -88,15 +100,67 @@ def test_trace_writes_a_timeline_and_the_metrics_block(capsys, tmp_path):
         jtrace.read_text())["traceEvents"]}
 
 
-@pytest.mark.parametrize("flag, item", [(["--tp", "2"], "multi-GPU"),
-                                        (["--serve", "127.0.0.1:0"],
-                                         "front door")])
+@pytest.mark.parametrize("flag, item", [(["--tp", "2"], "multi-GPU")])
 def test_unported_modes_refuse_and_name_their_roadmap_item(flag, item,
                                                            capsys):
     rc = port_cli.main(flag + ["--device", "cpu"])
     err = capsys.readouterr().err
     assert rc == 2
     assert "not ported yet" in err and "ROADMAP" in err and item in err
+
+
+SERVING = re.compile(r"serving on http://([0-9.]+):(\d+) \(tenants: (.*)\)$")
+
+
+def serve_cli(module, extra):
+    """Start ``python -m <module> --serve 127.0.0.1:0``, send one greedy
+    ``/v1/generate`` through ``ServeClient`` to the address it prints,
+    then SIGINT it.  Returns its output lines, exit code and the
+    request's terminal event."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get(
+            "PYTHONPATH") else []))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module, "--serve", "127.0.0.1:0",
+         "--tenants", "interactive:4:2,batch:2:1", *extra],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    watchdog = threading.Timer(180, proc.kill)
+    watchdog.start()
+    try:
+        first = proc.stdout.readline().rstrip("\n")
+        m = SERVING.match(first)
+        assert m, f"{module}: {first!r} {proc.stderr.read()[-2000:]}"
+        client = ServeClient(f"http://{m.group(1)}:{m.group(2)}")
+        fin = asyncio.run(client.generate([1, 2, 3], tenant="interactive",
+                                          max_new_tokens=4))
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return [first] + out.splitlines(), proc.returncode, fin
+
+
+def test_serve_mode_serves_then_drains_like_the_reference():
+    plines, prc, pfin = serve_cli("repro_torch.launch.serve",
+                                  ["--device", "cpu"])
+    jlines, jrc, jfin = serve_cli("repro.launch.serve", [])
+    assert prc == jrc == 0
+    # the addresses differ (port 0); the tenants and the rest do not
+    assert SERVING.match(plines[0]).group(3) == \
+        SERVING.match(jlines[0]).group(3) == \
+        "['default', 'interactive', 'batch']"
+    assert plines[1:] == jlines[1:] == [
+        "draining...", "drained cleanly (0 parked/stale evicted)"]
+    # the packages' seeded weights differ: the request on structure
+    for fin in (pfin, jfin):
+        assert fin["event"] == "finished" and fin["tokens"][:3] == [1, 2, 3]
+        assert len(fin["generated"]) == 4
+    assert sorted(pfin) == sorted(jfin)
 
 
 def test_the_card_is_the_default_device(monkeypatch):
