@@ -18,10 +18,14 @@ Phases (any failure exits non-zero; nothing is caught into success):
    paged chunk attention (K1) at hd 32/128, f32, bf16 and int8 pools, a CoW
    ``page_map`` and a zero-length row, at page 16 and page 8, t up to 300
    (t=8 at g=6 is a speculative verify), and at page 4 (the front door's
-   parity geometry: t 1, 4 and 37); flash attention (K2); cached-only
-   paged attention (K3) at qwen2-1.5b's widths, b=32, ragged lengths,
-   pages 16 and 4; the SSD scan (K4) at mamba2-2.7b's widths (80 heads,
-   P 64, N 128, and N 64), s 1000 and 4096, bf16 and f32;
+   parity geometry: t 1, 4 and 37), and at stablelm-12b's head (hd 160,
+   g 4; t 1, 4 and 255; f32, bf16 and int8 pools; pages 16 and 4); flash
+   attention (K2) at qwen2-1.5b's widths, at hd 160 (h 32, kv 8) and at
+   musicgen-medium's MHA (g 1, hd 64), s 1023 and 2048, bf16 and f32;
+   cached-only paged attention (K3) at qwen2-1.5b's widths and at hd 160,
+   b=32, ragged lengths, pages 16 and 4; the SSD scan (K4) at
+   mamba2-2.7b's widths (80 heads, P 64, N 128, and N 64), s 1000 and
+   4096, bf16 and f32;
 3. the dense path at full width: ``qwen2-1.5b`` in bf16 with random weights
    from the port's seeded init, served by ``ServeEngine`` — 8 prompts of
    128-1024 tokens (two share a 512-token head, so one suffix prefill runs),
@@ -38,8 +42,13 @@ Phases (any failure exits non-zero; nothing is caught into success):
    it was before the fork;
 5. end-to-end parity, card (kernels) against CPU (plain versions): the
    ``paper-agentic`` float32 engine, fused and legacy, identical greedy
-   tokens; the mamba2-2.7b widths at 4 layers in float32, the branching
-   cycle, identical tokens and committed state within 1e-4; a greedy
+   tokens; a paper-agentic-sized engine at hd 160 (d 640, 4 heads, kv 2,
+   2 layers), fused and legacy, identical greedy tokens; musicgen-medium's
+   and pixtral-12b's widths at 2 layers (pixtral with a 16-patch
+   ``frontend_embed``) through ``Model.prefill`` and contiguous
+   ``decode_step``s, identical greedy tokens (per codebook); the
+   mamba2-2.7b widths at 4 layers in float32, the branching cycle,
+   identical tokens and committed state within 1e-4; a greedy
    ``BranchSession`` run and a ``speculative_decode`` round, identical
    tokens and verified prefixes; the front door in process
    (``FrontDoor.dispatch``, page 4): a greedy ``/v1/generate`` stream with
@@ -77,12 +86,31 @@ Phases (any failure exits non-zero; nothing is caught into success):
 9. BranchFS on the card's host: ``create`` µs over bases of 10 to 10 000
    files, ``commit`` µs for 1 to 100 modified files, each commit leaving
    its sibling stale;
+11. (run before 10, which times its shapes) the other families at full
+   width and depth in bf16, random weights, one config at a time, each
+   freed before the next, with its init peak and largest allocation:
+   ``granite-8b``, ``nemotron-4-15b``, ``stablelm-12b`` (hd 160) and
+   ``pixtral-12b`` (text) through ``ServeEngine`` — page 16, 2048 pages,
+   prefix cache on, prompts of 1024, 768 (512 of them shared, so one
+   suffix prefill runs through K1), 384 and 128 tokens, 4 lazy-CoW
+   branches each (b = 16), 16 fused steps, a 4×4 verify, commit, a
+   checkpoint/restore, release to a full pool (phase 3's load, smaller),
+   then the load again on ``attn_impl="ref"`` for 4 steps; K1/K2/K3
+   launches equal their calls; prefill ms, step p50, tokens/s and the
+   device-busy share of 2 profiled steps.  Then
+   pixtral-12b through ``Model.prefill`` with a ``[2, 1024, 5120]``
+   ``frontend_embed`` and 128 text tokens (K2 over 1152 positions) and 16
+   contiguous decode steps, and musicgen-medium (b = 8 prompts of 512
+   frames × 4 codebooks, ``max_len`` 1024, 32 contiguous decode steps);
 10. the timing of each kernel at the main paths' shapes beside its plain
    version, the nearest single PyTorch call where one exists, the card's
    bound and the time of each kernel's earlier design (from PERF.md: K2
-   and K4 on the CUDA cores, K1 and K3 the CUDA-core page walk); then the
-   ``{"kernels": [...]}`` line, the card line and the final
-   ``{"ok": true, ...}`` line.
+   and K4 on the CUDA cores, K1 and K3 the CUDA-core page walk), and
+   rows at phase 11's shapes (K1/K3 at stablelm-12b's decode, K2 at hd
+   160 beside SDPA, K1 at nemotron-4-15b's g 6); then the
+   ``{"kernels": [...]}`` line (K1-K4; launches summed over the main
+   paths and phase 11), the card line and the final ``{"ok": true, ...}``
+   line.
 
 Every path's kernel launch counters are zeroed just before it runs and
 read just after; a kernel of the path that never launched fails the run.
@@ -402,6 +430,15 @@ def phase_kernels(gen) -> None:
     k1_cases += [(4, hd, g, t, dtype, False, [0, 701, 4, 37])
                  for hd, g in ((32, 2), (128, 6)) for t in (1, 4, 37)
                  for dtype in (torch.float32, torch.bfloat16)]
+    # stablelm-12b's head (hd 160, g 4): decode, a verify of 4 and a
+    # 255-token suffix prefill, f32, bf16 and int8 pools, pages 16 and 4
+    k1_cases += [(page, 160, 4, t, dtype, quant, lengths)
+                 for page, lengths in ((16, [0, 700, 333]),
+                                       (4, [0, 701, 4, 37]))
+                 for t in (1, 4, 255)
+                 for dtype, quant in ((torch.float32, False),
+                                      (torch.bfloat16, False),
+                                      (torch.bfloat16, True))]
     for page, hd, g, t, dtype, quant, lengths in k1_cases:
         case = paged_case(gen, b=len(lengths), t=t, kv=2, g=g, hd=hd,
                           page=page, lengths=lengths, dtype=dtype,
@@ -414,29 +451,37 @@ def phase_kernels(gen) -> None:
             f"cow+zero-length {tol_text(c, dtype)}")
         if not c["ok"]:
             fail("paged_chunk_attention disagrees with its plain version")
+    # qwen2-1.5b's prefill (h 12, kv 2, hd 128), stablelm-12b's (h 32, kv
+    # 8, hd 160) and musicgen-medium's MHA (h 24 = kv, hd 64, g 1)
     for s in (1023, 2048):
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = flash_case(gen, s=s, dtype=dtype)
-            out = flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            c = compare(out, flash_attention_ref(q, k, v))
-            log(f"K2 flash_attention h=12 kv=2 hd=128 s={s} "
-                f"{str(dtype)[6:]} {tol_text(c, dtype)}")
-            if not c["ok"]:
-                fail("flash_attention disagrees with its plain version")
-    for page, dtype in ((16, torch.bfloat16), (16, torch.float32),
-                        (4, torch.bfloat16), (4, torch.float32)):
+        for h, kv, hd in ((12, 2, 128), (32, 8, 160), (24, 24, 64)):
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v = flash_case(gen, s=s, h=h, kv=kv, hd=hd,
+                                     dtype=dtype)
+                out = flash_attention(q, k, v)
+                torch.cuda.synchronize()
+                c = compare(out, flash_attention_ref(q, k, v))
+                log(f"K2 flash_attention h={h} kv={kv} hd={hd} s={s} "
+                    f"{str(dtype)[6:]} {tol_text(c, dtype)}")
+                if not c["ok"]:
+                    fail("flash_attention disagrees with its plain version")
+    for page, dtype, hd, g in ((16, torch.bfloat16, 128, 6),
+                               (16, torch.float32, 128, 6),
+                               (4, torch.bfloat16, 128, 6),
+                               (4, torch.float32, 128, 6),
+                               (16, torch.bfloat16, 160, 4),
+                               (16, torch.float32, 160, 4)):
         lengths = ragged_lengths(gen, 32, 1055)
-        case = cached_case(paged_case(gen, b=32, t=1, kv=2, g=6, hd=128,
+        case = cached_case(paged_case(gen, b=32, t=1, kv=2, g=g, hd=hd,
                                       page=page, lengths=lengths,
                                       dtype=dtype))
         out = paged_attention(**case)
         torch.cuda.synchronize()
         c = compare(out, paged_attention_ref(**case))
         zero = not out[0].any()
-        log(f"K3 paged_attention page={page} b=32 kv=2 g=6 hd=128 lengths "
-            f"0..1055 {str(dtype)[6:]} {tol_text(c, dtype)}, zero-length "
-            f"row 0: {zero}")
+        log(f"K3 paged_attention page={page} b=32 kv=2 g={g} hd={hd} "
+            f"lengths 0..1055 {str(dtype)[6:]} {tol_text(c, dtype)}, "
+            f"zero-length row 0: {zero}")
         if not c["ok"] or not zero:
             fail("paged_attention disagrees with its plain version")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -508,30 +553,23 @@ def launches_match_calls(launches: dict, calls: dict) -> None:
                  "(one launch per call expected)")
 
 
+#: phase 3's prompt lengths: 8 requests, 4 branches each (b = 32)
+DENSE_PROMPTS = (1024, 768, 128, 256, 384, 512, 640, 896)
+
+
 def serve_dense(model, params, *, attn_impl: str, steps: int,
-                seed: int = 0) -> dict:
-    """:func:`_serve_dense` with the engine's paged-attention calls counted:
-    every bf16 call must be one launch, and the profiled decode steps must
-    launch the paged walk once per layer and no split combine kernel."""
-    with counted_calls() as calls:
-        res = _serve_dense(model, params, attn_impl=attn_impl, steps=steps,
-                           seed=seed)
-    launches = res["launches"]
-    log(f"attention calls on the path: {calls}")
-    launches_match_calls(launches, calls)
-    prof = res["profile"]
-    if prof.get("combine_launches_per_step"):
-        fail(f"a split combine kernel ran in the bf16 profile: {prof}")
-    if prof.get("paged_launches_per_step") not in (None, model.cfg.num_layers):
-        fail(f"expected {model.cfg.num_layers} paged-attention launches per "
-             f"decode step (one per layer): {prof}")
-    return res
-
-
-def _serve_dense(model, params, *, attn_impl: str, steps: int,
-                 seed: int = 0) -> dict:
-    """One run of the dense load through ServeEngine (phase 3): the fused
-    path with attn_impl="auto", path B with "ref"."""
+                lens=DENSE_PROMPTS, seed: int = 0) -> dict:
+    """One run of a dense load through ServeEngine (phase 3; phase 11 with
+    4 prompts): page 16, prefix cache on; the second prompt shares 512
+    tokens with the first, so one suffix prefill runs through K1; 4
+    lazy-CoW branches per prompt, ``steps`` decode steps on the fused path
+    (attn_impl="auto") or path B ("ref"), a 4x4 verify, first-commit-wins,
+    a checkpoint/restore, a release back to a full pool.  The engine's
+    paged-attention and the prefill's flash-attention calls are counted: every bf16 call must be one launch.  Each profiled decode
+    step must launch the paged walk once per layer by the wrappers'
+    counters, the tracer must see every one of those launches run on the
+    card (a window that lost events is traced again), and no split combine
+    kernel may run."""
     from repro_torch.runtime import ServeEngine
 
     cfg = model.cfg
@@ -540,58 +578,64 @@ def _serve_dense(model, params, *, attn_impl: str, steps: int,
                       max_pages_per_seq=128, prefix_cache=True,
                       attn_impl=attn_impl)
     rng = np.random.default_rng(seed)
-    lens = [1024, 768, 128, 256, 384, 512, 640, 896]
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     prompts[1][:512] = prompts[0][:512]        # a shared 512-token head
 
     zero_launches()
-    prefill_ms = []
-    roots = []
-    for p in prompts:
+    with counted_calls() as calls:
+        prefill_ms = []
+        roots = []
+        for p in prompts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            roots.append(eng.add_request(p))
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        st = eng.stats()
+        if st["prefill_dispatches"] != len(prompts):
+            fail(f"{cfg.name}: expected {len(prompts)} prefills, got {st}")
+        branches = {r: eng.fork(r, 4) for r in roots}
+        batch = [b for r in roots for b in branches[r]]
+        n = len(batch)
+        step_ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            out = eng.decode(batch)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(out) != n or not all(0 <= x < cfg.vocab_size
+                                        for x in out):
+                fail(f"{cfg.name}: bad decode output {out}")
+        faults = (eng.cow_faults, eng.cow_dispatches, eng.cow_inline_steps)
+        if faults != ((n, 1, 0) if legacy else (n, 0, 1)):
+            fail(f"{cfg.name}: expected {n} CoW faults serviced "
+                 f"{'as one dispatch' if legacy else 'inline in one step'}"
+                 f": {eng.stats()}")
+        # the lengths the last timed step's attention read: the cached
+        # prefix (K1, token inline) or the prefix and the token (K3)
+        decode_lengths = [eng.kv.length(x) - (0 if legacy else 1)
+                          for x in batch]
+        profile = profile_steps(lambda: eng.decode(batch))
+        probe = branches[roots[0]][0]
+        verify_length = eng.kv.length(probe)
+        drafts = [rng.integers(0, cfg.vocab_size, 4).tolist()
+                  for _ in range(4)]
+        rows = eng.spec_verify(probe, drafts)
+        if len(rows) != 4 or any(len(r) != 4 for r in rows):
+            fail(f"{cfg.name}: bad spec_verify rows {rows}")
+        for r in roots:
+            eng.commit(branches[r][0])
+        if eng.stats()["sequences_live"] != len(roots):
+            fail(f"{cfg.name}: siblings survived first-commit-wins: "
+                 f"{eng.stats()}")
+        before = eng.spec_verify(roots[2], [[1, 2, 3]])
+        freed = eng.checkpoint(roots[2])
+        eng.restore(roots[2])
+        after = eng.spec_verify(roots[2], [[1, 2, 3]])
+        if before != after or not freed:
+            fail(f"{cfg.name}: checkpoint/restore changed the branch: "
+                 f"{before} {after}")
+        final = eng.decode(roots)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        roots.append(eng.add_request(p))
-        torch.cuda.synchronize()
-        prefill_ms.append((time.perf_counter() - t0) * 1e3)
-    st = eng.stats()
-    if st["prefill_dispatches"] != len(prompts):
-        fail(f"expected {len(prompts)} prefills, got {st}")
-    branches = {r: eng.fork(r, 4) for r in roots}
-    batch = [b for r in roots for b in branches[r]]
-    step_ms = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        out = eng.decode(batch)
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        if len(out) != 32 or not all(0 <= x < cfg.vocab_size for x in out):
-            fail(f"bad decode output {out}")
-    faults = (eng.cow_faults, eng.cow_dispatches, eng.cow_inline_steps)
-    if faults != ((32, 1, 0) if legacy else (32, 0, 1)):
-        fail(f"expected 32 CoW faults serviced "
-             f"{'as one dispatch' if legacy else 'inline in one step'}: "
-             f"{eng.stats()}")
-    # the lengths the last timed step's attention read: the cached prefix
-    # (K1, token inline) or the prefix and the token (K3)
-    decode_lengths = [eng.kv.length(x) - (0 if legacy else 1) for x in batch]
-    profile = profile_steps(lambda: eng.decode(batch))
-    probe = branches[roots[0]][0]
-    verify_length = eng.kv.length(probe)
-    drafts = [rng.integers(0, cfg.vocab_size, 4).tolist() for _ in range(4)]
-    rows = eng.spec_verify(probe, drafts)
-    if len(rows) != 4 or any(len(r) != 4 for r in rows):
-        fail(f"bad spec_verify rows {rows}")
-    for r in roots:
-        eng.commit(branches[r][0])
-    if eng.stats()["sequences_live"] != len(roots):
-        fail(f"siblings survived first-commit-wins: {eng.stats()}")
-    before = eng.spec_verify(roots[2], [[1, 2, 3]])
-    freed = eng.checkpoint(roots[2])
-    eng.restore(roots[2])
-    after = eng.spec_verify(roots[2], [[1, 2, 3]])
-    if before != after or not freed:
-        fail(f"checkpoint/restore changed the branch: {before} {after}")
-    final = eng.decode(roots)
-    torch.cuda.synchronize()
     launches = launch_counts()
     for r in roots:
         eng.release(r)
@@ -600,25 +644,31 @@ def _serve_dense(model, params, *, attn_impl: str, steps: int,
     if (st["sequences_live"] or st["pages_free"] + st["prefix_pages_cached"]
             != st["pages_total"]):
         fail("pool not drained back to full (free + prefix-cached pages)")
-    log(f"launches on the path: {launches}")
+    log(f"attention calls on the path: {calls}; launches: {launches}")
+    if not legacy and calls["paged_attention"]:
+        fail(f"the fused path called the legacy kernel: {calls}")
     needed = ["paged_chunk_attention", "flash_attention"]
     needed += ["paged_attention"] if legacy else []
     if not all(launches[k] for k in needed):
         fail(f"a kernel of the path never launched: {launches}")
-    if not legacy and launches["paged_attention"]:
-        fail(f"the fused path launched the legacy kernel: {launches}")
+    launches_match_calls(launches, calls)
+    walk_gate(profile, cfg.num_layers)
     decode_p50 = statistics.median(step_ms)
+    busy = (None if profile.get("idle_share") is None
+            else round(1 - profile["idle_share"], 3))
     card = card_line()
-    log(f"prefill ms per request (prompt {lens}): "
+    log(f"{cfg.name} prefill ms per request (prompt {list(lens)}, the "
+        f"second's first 512 tokens cached): "
         f"{[round(x, 3) for x in prefill_ms]} ({card})")
-    log(f"decode step ms p50 {decode_p50:.3f} (b=32, {steps} steps, "
-        f"attn_impl={attn_impl!r}), {32 / decode_p50 * 1e3:.1f} tokens/s "
-        f"({card})")
+    log(f"{cfg.name} decode step ms p50 {decode_p50:.3f} (b={n}, {steps} "
+        f"steps, attn_impl={attn_impl!r}), {n / decode_p50 * 1e3:.1f} "
+        f"tokens/s, device busy share {busy} ({card})")
     return {
         "prefill_ms": [round(x, 3) for x in prefill_ms],
         "suffix_prefill_ms": round(prefill_ms[1], 3),
         "decode_step_ms_p50": round(decode_p50, 3),
-        "decode_tokens_per_s": round(32 / decode_p50 * 1e3, 1),
+        "decode_tokens_per_s": round(n / decode_p50 * 1e3, 1),
+        "device_busy_share": busy,
         "final_tokens": final,
         "launches": launches,
         "decode_lengths": decode_lengths,
@@ -804,14 +854,41 @@ def phase_ssm(seed: int = 0) -> dict:
             "profile": res["profile"]}
 
 
-def profile_steps(step, steps: int = 2) -> dict:
+#: the paged walk's kernels (K1 and K3, bf16 on tensor cores or f32 on the
+#: CUDA cores), by the names the tracer gives them; the split combine is not
+#: one of them
+WALK_KERNELS = ("paged_tc_kernel", "paged_chunk_attention_kernel",
+                "paged_attention_kernel")
+
+
+def profile_steps(step, steps: int = 2, attempts: int = 4) -> dict:
     """Device time by kernel and the idle share over a few steps
     (torch.profiler; host wall clock around the steps, which sync).  One
     more step runs first as the profiler's warm-up, traced and dropped:
     events of a window's first kernels can be lost while the tracer
-    starts (a run on an H100 lost ~112 of 4240)."""
+    starts (a run on an H100 lost ~112 of 4240).  A window can still lose
+    a burst of events later (one lost a layer's worth of every kernel), so
+    the paged walks the tracer saw are held against the wrappers' counters
+    over the same steps: a window that lost any is traced again, up to
+    ``attempts`` windows.  ``complete`` is True when the tracer saw every
+    counted walk, None when the steps launched none (nothing to check)."""
+    for attempt in range(attempts):
+        out = _profile_window(step, steps)
+        if out["complete"] is not False:
+            return out
+        log(f"profile window {attempt + 1} of {attempts} lost events: the "
+            f"tracer saw {out['walk_traced']} of {out['walk_counted']} "
+            "paged walks")
+    return out
+
+
+def _profile_window(step, steps: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    def walks() -> int:
+        n = launch_counts()
+        return n["paged_chunk_attention"] + n["paged_attention"]
 
     traced = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -820,11 +897,13 @@ def profile_steps(step, steps: int = 2) -> dict:
                      p.key_averages())) as prof:
         step()
         prof.step()
+        walks0 = walks()
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
             # before the last prof.step(), which collects the trace
             wall_us = (time.perf_counter() - t0) * 1e6
+            counted = walks() - walks0
             prof.step()
     kernels = []
     for e in traced[0]:
@@ -836,20 +915,24 @@ def profile_steps(step, steps: int = 2) -> dict:
         if us is None:
             us = e.self_cuda_time_total
         kernels.append((us, e.count, e.key))
+    seen = sum(k[1] for k in kernels if any(w in k[2] for w in WALK_KERNELS))
+    out = {"walk_counted": counted, "walk_traced": seen,
+           "complete": None if not counted else seen == counted,
+           "walk_launches_per_step": counted / steps}
     busy = sum(k[0] for k in kernels)
     if not busy:
         log("profile: device time not measured (no CUDA events)")
-        return {"device_busy_ms_per_step": None, "idle_share": None}
+        return {**out, "device_busy_ms_per_step": None, "idle_share": None}
     kernels.sort(reverse=True)
     log(f"profile over {steps} steps: wall {wall_us / steps / 1e3:.3f}"
         f" ms/step, device busy {busy / steps / 1e3:.3f} ms/step, idle "
         f"{1 - busy / wall_us:.3f}, {sum(k[1] for k in kernels) // steps} "
-        "kernels/step")
+        f"kernels/step; paged walks traced {seen} of {counted} launched")
     for us, count, name in kernels[:8]:
         log(f"  {us / steps / 1e3:8.3f} ms/step {count // steps:5d}x "
             f"{name[:90]}")
-    out = {"device_busy_ms_per_step": busy / steps / 1e3,
-           "idle_share": 1 - busy / wall_us}
+    out.update(device_busy_ms_per_step=busy / steps / 1e3,
+               idle_share=1 - busy / wall_us)
     for label, key, name in (
             ("K1/K3 attention (bf16, tensor cores)", "paged_tc_kernel",
              "paged"),
@@ -866,6 +949,22 @@ def profile_steps(step, steps: int = 2) -> dict:
             out[f"{name}_ms_per_step"] = ms
             out[f"{name}_launches_per_step"] = n
     return out
+
+
+def walk_gate(profile: dict, num_layers: int) -> None:
+    """A profiled bf16 decode step launched the paged walk once per layer
+    (the wrappers' counters), the tracer saw each of those launches run on
+    the card in a window that lost none, and no split combine kernel ran
+    there."""
+    if profile["walk_launches_per_step"] != num_layers:
+        fail(f"expected {num_layers} paged-walk launches per profiled "
+             f"decode step (one per layer), counted "
+             f"{profile['walk_launches_per_step']}")
+    if not profile["complete"]:
+        fail("every profile window lost paged-walk events (the tracer saw "
+             f"{profile['walk_traced']} of {profile['walk_counted']})")
+    if profile["combine_launches_per_step"]:
+        fail(f"a split combine kernel ran in the bf16 profile: {profile}")
 
 
 def _leaves(tree):
@@ -925,6 +1024,43 @@ def phase_parity() -> None:
             "tokens)")
         if not same:
             fail(f"{key}: {tokens[key]} != cpu {want}")
+
+    # a paper-agentic-sized engine at stablelm-12b's head dim (hd 160)
+    cfg = dataclasses.replace(get_config("paper-agentic"), d_model=640,
+                              num_heads=4, num_kv_heads=2, head_dim=160,
+                              num_layers=2, dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = {}
+    for dev, impl in (("cpu", "auto"), ("cuda", "auto"), ("cuda", "ref")):
+        eng = ServeEngine(model, params, num_pages=128, page_size=4,
+                          max_pages_per_seq=16, attn_impl=impl, device=dev)
+        tokens[dev, impl] = exercise(eng)
+    for key in (("cuda", "auto"), ("cuda", "ref")):
+        same = tokens[key] == tokens["cpu", "auto"]
+        log(f"hd 160 engine (d 640, 4 heads of 160, kv 2, 2 layers) "
+            f"{key[0]} attn_impl={key[1]!r} vs cpu fused: greedy tokens "
+            f"identical={same} ({len(tokens[key])} tokens)")
+        if not same:
+            fail(f"hd 160 {key}: {tokens[key]} != cpu "
+                 f"{tokens['cpu', 'auto']}")
+    for name, extra in (("musicgen-medium", {}),
+                        ("pixtral-12b", {"patches": 16})):
+        cfg = dataclasses.replace(get_config(name), num_layers=2,
+                                  dtype="float32")
+        model = Model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        runs = {dev: contiguous_run(model, _to(params, dev), b=2, s=40,
+                                    steps=8, device=dev, **extra)["tokens"]
+                for dev in ("cpu", "cuda")}
+        same = runs["cuda"] == runs["cpu"]
+        log(f"{name} widths, 2 layers, Model.prefill + 8 contiguous "
+            f"decode_steps{' (16-patch frontend_embed)' if extra else ''}"
+            f": greedy tokens identical={same}")
+        if not same:
+            fail(f"{name}: card {runs['cuda']} != cpu {runs['cpu']}")
+        del params
+    torch.cuda.empty_cache()
 
     cfg = dataclasses.replace(get_config("mamba2-2.7b"), dtype="float32",
                               num_layers=4)
@@ -1831,6 +1967,127 @@ def phase_branchfs() -> dict:
     return out
 
 
+#: phase 11's paged configs, served through ServeEngine at full width and
+#: depth (pixtral-12b text only, as the JAX engine serves it), and their
+#: prompts (b = 16 after the forks)
+FAMILY_CONFIGS = ("granite-8b", "nemotron-4-15b", "stablelm-12b",
+                  "pixtral-12b")
+FAMILY_PROMPTS = (1024, 768, 384, 128)
+
+
+def contiguous_run(model, params, *, b: int, s: int, steps: int,
+                   patches: int = 0, max_len: int = 0,
+                   device: str = "cuda", seed: int = 0) -> dict:
+    """The JAX package's contiguous-cache serving path: ``Model.prefill``
+    of ``b`` prompts of ``s`` tokens (``[b, s, cb]`` for several codebooks;
+    with ``patches``, a seeded ``frontend_embed`` over the first
+    positions; K2 over every position), then ``steps`` greedy
+    ``decode_step``s at per-row positions.  Inputs come from numpy, so
+    both devices see the same ones.  Logits must be finite and of the
+    config's shape; K2 is called once per layer, and on the card launched
+    once per call.  Returns the greedy tokens (per codebook) and the
+    times; tokens/s counts each codebook's token (``b * cb`` a step)."""
+    cfg = model.cfg
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rng = np.random.default_rng(seed)
+    cb = cfg.num_codebooks
+    shape = (b, s, cb) if cb > 1 else (b, s)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+    fe = None
+    if patches:
+        fe = torch.from_numpy(rng.standard_normal(
+            (b, patches, cfg.d_model), np.float32)).to(device)
+    want = (b, 1, cb, cfg.vocab_size) if cb > 1 else (b, 1, cfg.vocab_size)
+    zero_launches()
+    with counted_calls() as calls:
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, tokens.to(device), fe,
+                                      max_len=max_len or s + steps)
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        out, step_ms = [], []
+        for i in range(steps):
+            if tuple(logits.shape) != want or not torch.isfinite(
+                    logits).all():
+                fail(f"{cfg.name}: logits {tuple(logits.shape)} (want "
+                     f"{want}) or not finite at step {i}")
+            tok = logits[:, -1].argmax(-1)          # [b] or [b, cb]
+            out.append(tok.tolist())
+            pos = torch.full((b,), s + i, device=device)
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, tok[:, None],
+                                              pos)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    if calls["flash_attention"] != cfg.num_layers:
+        fail(f"{cfg.name}: {calls['flash_attention']} K2 calls for one "
+             f"{cfg.num_layers}-layer prefill")
+    if cuda:
+        launches_match_calls(launches, calls)
+    p50 = statistics.median(step_ms)
+    return {"tokens": out, "prefill_ms": round(prefill_ms, 3),
+            "decode_step_ms_p50": round(p50, 3),
+            "decode_tokens_per_s": round(b * cb / p50 * 1e3, 1),
+            "positions": s, "launches": launches}
+
+
+def phase_families(seed: int = 0) -> dict:
+    """Phase 11: the dense, VLM and audio configs at full width and depth
+    in bf16, one at a time, each freed before the next."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    log("== phase 11: granite-8b, nemotron-4-15b, stablelm-12b, "
+        "pixtral-12b and musicgen-medium at full width and depth, bf16, "
+        "random weights")
+    out = {}
+    card = card_line()
+    for name in FAMILY_CONFIGS + ("musicgen-medium",):
+        cfg = get_config(name)
+        model = Model(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated()
+        res = {"params_b": round(cfg.param_count() / 1e9, 3),
+               "init_s": round(time.perf_counter() - t0, 1),
+               "init_peak_gb": round(init_peak / 1e9, 2)}
+        if name in FAMILY_CONFIGS:
+            res["fused"] = serve_dense(model, params, attn_impl="auto",
+                                       steps=16, lens=FAMILY_PROMPTS,
+                                       seed=seed)
+            res["ref"] = serve_dense(model, params, attn_impl="ref",
+                                     steps=4, lens=FAMILY_PROMPTS, seed=seed)
+        if name == "pixtral-12b":
+            res["image"] = contiguous_run(model, params, b=2, s=1152,
+                                          steps=16, patches=1024, seed=seed)
+        if name == "musicgen-medium":
+            res["audio"] = contiguous_run(model, params, b=8, s=512,
+                                          steps=32, max_len=1024, seed=seed)
+        for key in ("image", "audio"):
+            if key in res:
+                r = res[key]
+                log(f"{name} {key} through Model.prefill/decode_step: "
+                    f"prefill {r['prefill_ms']} ms over {r['positions']} "
+                    f"positions, step p50 {r['decode_step_ms_p50']} ms, "
+                    f"{r['decode_tokens_per_s']} tokens/s, launches "
+                    f"{r['launches']} ({card})")
+        res["max_allocated_gb"] = round(
+            torch.cuda.max_memory_allocated() / 1e9, 2)
+        log(f"{name}: {res['params_b']} B params, init {res['init_s']} s, "
+            f"init peak {res['init_peak_gb']} GB, max allocated "
+            f"{res['max_allocated_gb']} GB")
+        out[name] = res
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def forced_splits(n: int):
     """Split K1's page walk into n ranges, one block each (the wrapper
@@ -1846,10 +2103,13 @@ def forced_splits(n: int):
 
 
 def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
-                 explore: dict, door: dict) -> list:
+                 explore: dict, door: dict, families: dict) -> list:
     """Kernel rows: K1 and K2 at the fused dense path's shapes, K3 at path
     B's, K4 at path A's; K1's and K2's launches are the fused dense
-    path's, the public API phase's and the front door's."""
+    path's, the public API phase's, the front door's and phase 11's (K3's
+    path B's and phase 11's).  Then the families' rows: K1/K3 at
+    stablelm-12b's decode (hd 160), K2 at hd 160 with SDPA beside it, K1
+    at nemotron-4-15b's g 6."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1920,7 +2180,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         "replaces": "src/repro/kernels/paged_attention/kernel.py:260",
         "launches": main["launches"]["paged_chunk_attention"]
         + explore["launches"]["paged_chunk_attention"]
-        + door["launches"]["paged_chunk_attention"],
+        + door["launches"]["paged_chunk_attention"]
+        + family_launches(families, "paged_chunk_attention"),
         "max_abs_err": d["max_abs_err"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
@@ -1953,7 +2214,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
         "launches": main["launches"]["flash_attention"]
         + explore["launches"]["flash_attention"]
-        + door["launches"]["flash_attention"],
+        + door["launches"]["flash_attention"]
+        + family_launches(families, "flash_attention"),
         "max_abs_err": f["max_abs_err"], "ms": f["ms"],
         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
@@ -1985,7 +2247,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
                   "paged_chunk_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:114",
-        "launches": legacy["launches"]["paged_attention"],
+        "launches": legacy["launches"]["paged_attention"]
+        + family_launches(families, "paged_attention"),
         "max_abs_err": d["max_abs_err"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
@@ -2021,7 +2284,85 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
     })
+    family_timing(gen, timer, families)
     return rows
+
+
+def family_launches(families: dict, name: str) -> int:
+    """One kernel's launches over phase 11's runs."""
+    return sum(res[key]["launches"][name] for res in families.values()
+               for key in ("fused", "ref", "image", "audio") if key in res)
+
+
+def family_timing(gen, timer, families: dict) -> None:
+    """Phase 10's rows at phase 11's shapes (bf16, page 16): K1 at
+    stablelm-12b's fused decode (b=16, kv 8, g 4, hd 160, the step's
+    lengths) and at nemotron-4-15b's (g 6, hd 128), K3 at stablelm's path
+    B decode, K2 at hd 160 (h 32, kv 8, s 1023) beside SDPA.  Each kernel
+    is held against its plain version first."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_chunk_attention)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_chunk_attention_ref)
+
+    bf16 = torch.bfloat16
+    out = {}
+    for label, name, g, hd, path in (
+            ("K1 stablelm-12b decode", "stablelm-12b", 4, 160, "fused"),
+            ("K1 nemotron-4-15b decode", "nemotron-4-15b", 6, 128, "fused"),
+            ("K3 stablelm-12b decode", "stablelm-12b", 4, 160, "ref")):
+        res = families[name][path]
+        lengths = res["decode_lengths"]
+        case = paged_case(gen, b=len(lengths), t=1, kv=8, g=g, hd=hd,
+                          page=16, lengths=lengths, dtype=bf16)
+        if path == "ref":
+            case = cached_case(case)
+            fn, ref_fn, cost = paged_attention, paged_attention_ref, \
+                cached_cost
+            kernel = "paged_attention"
+        else:
+            fn, ref_fn, cost = paged_chunk_attention, \
+                paged_chunk_attention_ref, paged_cost
+            kernel = "paged_chunk_attention"
+        c = compare(fn(**case), ref_fn(**case))
+        if not c["ok"]:
+            fail(f"{label}: {kernel} disagrees with its plain version "
+                 f"({tol_text(c, bf16)})")
+        ms = timer(lambda: fn(**case))
+        plain = timer(lambda: ref_fn(**case), 5)
+        bnd, by = bound_ms(*cost(case), bf16)
+        out[label] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                          launches=res["launches"][kernel],
+                          max_abs_err=c["max_abs_err"])
+        log(f"{label} b={len(lengths)} kv=8 g={g} hd={hd} (lengths "
+            f"{min(lengths)}-{max(lengths)}): kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
+            f"{res['launches'][kernel]} launches in phase 11's {path} run")
+    q, k, v = flash_case(gen, s=1023, h=32, kv=8, hd=160)
+    c = compare(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+    if not c["ok"]:
+        fail(f"K2 hd 160: flash_attention disagrees with its plain version "
+             f"({tol_text(c, bf16)})")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = timer(lambda: flash_attention(q, k, v))
+    plain = timer(lambda: flash_attention_ref(q, k, v), 5)
+    lib = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    bnd, by = bound_ms(*flash_cost(q, k), bf16)
+    launches = families["stablelm-12b"]["fused"]["launches"][
+        "flash_attention"]
+    out["K2 hd 160 s=1023"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                   bound_ms=bnd, bound_by=by,
+                                   launches=launches,
+                                   max_abs_err=c["max_abs_err"])
+    log(f"K2 h=32 kv=8 hd=160 s=1023: kernel {ms:.4f} ms, sdpa {lib:.4f} "
+        f"ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), {launches} "
+        "launches in stablelm-12b's fused run")
+    log("family kernel rows: " + json.dumps(out))
 
 
 def main() -> None:
@@ -2061,7 +2402,8 @@ def main() -> None:
     door = phase_front_door()
     device_explore = phase_device_explore()
     fs = phase_branchfs()
-    rows = phase_timing(gen, dense, legacy, ssm, explore, door)
+    families = phase_families()
+    rows = phase_timing(gen, dense, legacy, ssm, explore, door, families)
     log(f"total {time.perf_counter() - t0:.1f} s after the build")
     keys = ("prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",
             "launches", "profile")
@@ -2077,6 +2419,13 @@ def main() -> None:
     log("front door phase: " + json.dumps(door))
     log("device explore: " + json.dumps(device_explore))
     log(f"BranchFS ({os.uname().nodename}): " + json.dumps(fs))
+    log("families phase: " + json.dumps(
+        {name: {k: ({kk: r[kk] for kk in ("prefill_ms", "decode_step_ms_p50",
+                                           "decode_tokens_per_s",
+                                           "device_busy_share", "launches")
+                     if kk in r} if isinstance(r, dict) else r)
+                for k, r in res.items()}
+         for name, res in families.items()}))
     print(json.dumps({"kernels": rows}))
     print(card)
     # every phase ran on device 0: the run used one card

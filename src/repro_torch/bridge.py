@@ -3,8 +3,10 @@
 The JAX side converts its parameter pytree leaf by leaf with
 ``np.asarray``; :func:`params_from_jax` turns that tree of numpy arrays
 into the port's dict of tensors.  The layouts are the same on both sides
-(layers stacked ``[L, ...]``), so the bridge checks names and shapes and
-converts dtypes: bfloat16 arrives as ``ml_dtypes.bfloat16`` and crosses
+(layers stacked ``[L, ...]``; a multi-codebook ``embed`` ``[cb, V, d]`` and
+``lm_head`` ``[d, cb * V]``; the VLM stub's ``frontend_proj`` ``[d, d]``; an
+MLP without ``wg`` for sqrelu), so the bridge checks names and converts
+dtypes: bfloat16 arrives as ``ml_dtypes.bfloat16`` and crosses
 as its ``uint16`` bit pattern, as ``repro/checkpoint/serialization.py``
 stores it, so no value is rounded on the way.
 """
@@ -17,8 +19,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import TO_PORT
 
-TOP = {"embed", "layers", "final_norm", "lm_head"}
+TOP = {"embed", "frontend_proj", "layers", "final_norm", "lm_head"}
 LAYER = {"ln1", "ln2", "attn", "mlp"}
 ATTN = {"wq", "wk", "wv", "wo", "bq", "bk", "bv"}
 MLP = {"wg", "wu", "wd"}
@@ -38,18 +41,27 @@ def tensor_from_numpy(a: np.ndarray, device: Any = None) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+#: parameters of the families still to port -> where ROADMAP queues them
+NOT_PORTED = {"shared": TO_PORT["hybrid"], "moe": TO_PORT["moe"]}
+
+
 def _check_keys(tree: Dict[str, Any], allowed: set, where: str) -> None:
+    for name, item in NOT_PORTED.items():
+        if name in tree:
+            raise NotImplementedError(
+                f"{where}: {name!r} belongs to a family the port does not "
+                f"serve yet ({item})")
     extra = set(tree) - allowed
     if extra:
         raise NotImplementedError(
             f"{where}: parameters {sorted(extra)} belong to a family the "
-            "port does not serve yet (it serves dense and SSM)")
+            "port does not serve (it serves dense, vlm, audio and SSM)")
 
 
 def params_from_jax(tree: Dict[str, Any], device: Any = None
                     ) -> Dict[str, Any]:
-    """The JAX package's dense- or SSM-family parameter tree (numpy
-    leaves) as the port's parameter dict on ``device`` (the card unless
+    """The JAX package's dense-, vlm-, audio- or SSM-family parameter tree
+    (numpy leaves) as the port's parameter dict on ``device`` (the card unless
     the caller names one)."""
     device = resolve_device(device)
     _check_keys(tree, TOP, "params")

@@ -7,9 +7,15 @@ Importing this package registers every config; ``get_config(name)`` /
 from repro_torch.configs.base import ArchConfig, get_config, list_archs, reduced
 
 # registration side effects — one module per served architecture
+from repro_torch.configs.granite_8b import GRANITE_8B
 from repro_torch.configs.mamba2_2_7b import MAMBA2_2_7B
+from repro_torch.configs.musicgen_medium import MUSICGEN_MEDIUM
+from repro_torch.configs.nemotron_4_15b import NEMOTRON_4_15B
 from repro_torch.configs.paper_agentic import PAPER_AGENTIC
+from repro_torch.configs.pixtral_12b import PIXTRAL_12B
 from repro_torch.configs.qwen2_1_5b import QWEN2_1_5B
+from repro_torch.configs.stablelm_12b import STABLELM_12B
 
 __all__ = ["ArchConfig", "get_config", "list_archs", "reduced",
-           "MAMBA2_2_7B", "PAPER_AGENTIC", "QWEN2_1_5B"]
+           "GRANITE_8B", "MAMBA2_2_7B", "MUSICGEN_MEDIUM", "NEMOTRON_4_15B",
+           "PAPER_AGENTIC", "PIXTRAL_12B", "QWEN2_1_5B", "STABLELM_12B"]

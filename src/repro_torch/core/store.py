@@ -9,10 +9,17 @@ playing the role of files:
   reference to the new tensor; the base is never touched.  Branch creation
   is O(1) regardless of base size (paper Table 4).  In the JAX package this
   holds because arrays are immutable; torch tensors are not, so it holds
-  only while no one writes into a tensor the store hands out.  The port's
-  readers keep that rule: its SSM ``decode_step`` returns new tensors and
-  never writes into the cache it was given, and a batched step writes each
-  branch back as a tensor of its own, never as a view of the batch.
+  only while no one writes into a tensor the store hands out.  The store
+  checks that rule: it stamps each tensor leaf with its version counter
+  when the leaf is written, and a read of a leaf written in place since
+  (directly or through a view) raises :class:`BranchStateError` instead
+  of handing out what a sibling may have changed.  The port's SSM
+  ``decode_step`` returns new tensors, so an SSM cache can be stepped as
+  restored; a batched step writes each branch back as a tensor of its
+  own, never as a view of the batch.  The dense, VLM and audio
+  ``decode_step`` write the new K/V row into the cache they are given, so
+  a dense cache restored from a store must be cloned before it is
+  stepped.
 * **Branch-chain resolution**: a read walks current branch → ancestors →
   base, exactly the lookup order of BranchFS §4.2.
 * **Tombstones**: deletions write a sentinel so deleted leaves do not
@@ -37,6 +44,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
+import torch
 import torch.utils._pytree as pytree
 
 from repro_torch.core.errors import (
@@ -84,10 +92,14 @@ class BranchStore:
         self._tree = BranchTree(freeze_on_fork=False,
                                 allow_fork_resolved=True)
         self._deltas: Dict[int, Dict[str, Any]] = {}
+        # per branch, the version counter of each tensor leaf when written
+        self._stamps: Dict[int, Dict[str, int]] = {}
         self._tree.attach(self)
         root = self._tree.create_root()
         assert root == self.ROOT
-        self._deltas[root] = dict(base or {})
+        self._deltas[root] = {}
+        self._stamps[root] = {}
+        self._put(root, dict(base or {}))
 
     @property
     def tree(self) -> BranchTree:
@@ -104,14 +116,17 @@ class BranchStore:
     def on_fork(self, parent: int, children: List[int]) -> None:
         for c in children:
             self._deltas[c] = {}   # O(1): children start with empty deltas
+            self._stamps[c] = {}
 
     def on_commit(self, child: int, parent: int) -> None:
         # Apply tombstones first, then modified leaves (BranchFS §4.3).
         delta = self._deltas[child]
         parent_delta = self._deltas[parent]
+        stamps, parent_stamps = self._stamps[child], self._stamps[parent]
         parent_is_base = self._tree.node(parent).parent is None
         for path, leaf in delta.items():
             if leaf is TOMBSTONE:
+                parent_stamps.pop(path, None)
                 if parent_is_base:
                     # committing into the base: delete outright
                     parent_delta.pop(path, None)
@@ -120,16 +135,23 @@ class BranchStore:
         for path, leaf in delta.items():
             if leaf is not TOMBSTONE:
                 parent_delta[path] = leaf
+                parent_stamps.pop(path, None)
+                if path in stamps:
+                    parent_stamps[path] = stamps[path]
         self._deltas[child] = {}
+        self._stamps[child] = {}
 
     def on_abort(self, branch: int) -> None:
         self._deltas[branch] = {}
+        self._stamps[branch] = {}
 
     def on_invalidate(self, branch: int) -> None:
         self._deltas[branch] = {}
+        self._stamps[branch] = {}
 
     def on_reap(self, branch: int) -> None:
         self._deltas.pop(branch, None)
+        self._stamps.pop(branch, None)
 
     # ------------------------------------------------------------------
     # lifecycle: fork / commit / abort (delegated to the kernel)
@@ -191,8 +213,18 @@ class BranchStore:
                     leaf = self._deltas[level][path]
                     if leaf is TOMBSTONE:
                         raise NoSuchLeafError(path)
-                    return leaf
+                    return self._unchanged(level, path, leaf)
             raise NoSuchLeafError(path)
+
+    def _unchanged(self, level: int, path: str, leaf: Any) -> Any:
+        """``leaf`` if no one wrote into it since it was stored."""
+        stamp = self._stamps[level].get(path)
+        if stamp is not None and leaf._version != stamp:
+            raise BranchStateError(
+                f"leaf {path} of branch {level} was written in place after "
+                "it was stored, and its readers share it (clone a restored "
+                "tensor before writing into it)")
+        return leaf
 
     def exists(self, branch_id: int, path: str) -> bool:
         try:
@@ -202,14 +234,21 @@ class BranchStore:
             return False
 
     def write(self, branch_id: int, path: str, value: Any) -> None:
-        with self._lock:
-            self._writable(branch_id)
-            self._deltas[branch_id][path] = value
+        self.write_many(branch_id, {path: value})
 
     def write_many(self, branch_id: int, items: Mapping[str, Any]) -> None:
         with self._lock:
             self._writable(branch_id)
-            self._deltas[branch_id].update(items)
+            self._put(branch_id, items)
+
+    def _put(self, branch_id: int, items: Mapping[str, Any]) -> None:
+        delta, stamps = self._deltas[branch_id], self._stamps[branch_id]
+        for path, leaf in items.items():
+            delta[path] = leaf
+            stamps.pop(path, None)
+            # inference tensors keep no version counter: nothing to check
+            if isinstance(leaf, torch.Tensor) and not leaf.is_inference():
+                stamps[path] = leaf._version
 
     def delete(self, branch_id: int, path: str) -> None:
         """Record a tombstone (the leaf must currently resolve)."""
@@ -218,6 +257,7 @@ class BranchStore:
             if not self.exists(branch_id, path):
                 raise NoSuchLeafError(path)
             self._deltas[branch_id][path] = TOMBSTONE
+            self._stamps[branch_id].pop(path, None)
 
     def listdir(self, branch_id: int) -> List[str]:
         """Effective namespace: union along the chain minus tombstones."""
@@ -289,7 +329,7 @@ class BranchStore:
                     if leaf is TOMBSTONE:
                         dead.add(path)
                     else:
-                        out[path] = leaf
+                        out[path] = self._unchanged(level, path, leaf)
             return out
 
 

@@ -16,14 +16,15 @@
 // 64 query rows of one head; key tiles of 64 walk from the first to the
 // diagonal one (the only one masked; tiles above it are skipped).
 // * S = Q K^T: one wgmma m64n64k16 per 16 of hd, Q and K from shared
-//   memory as TMA wrote them (128-byte swizzle, 64-byte for hd 32); the
-//   bf16 products are exact in the f32 accumulator.
+//   memory as TMA wrote them (128-byte swizzle; 64-byte, in 32-column
+//   panels, for hd 32 and 160); the bf16 products are exact in the f32
+//   accumulator.
 // * The online softmax runs in base 2 on the accumulator's fragment (a
 //   thread holds two rows; row max and sum over the 4 lanes of a row).
 // * O += P V: P, f32 in registers, is split into kPTerms bf16 terms (hi =
 //   bf16(p), lo = bf16(p - hi)), each the register A operand of a wgmma
-//   m64n{hd}k16 into the one f32 accumulator; V is the B operand, N-major,
-//   from shared memory.  One term (P rounded to bf16) misses the f32-grade
+//   m64n{hd}k16 into the one f32 accumulator (hd 160: five m64n32k16, one
+//   per 32-column panel); V is the B operand, N-major, from shared memory.  One term (P rounded to bf16) misses the f32-grade
 //   tolerance by ~50x; two meet it with 5x to spare
 //   (tests/test_torch_tc_numerics.py).  l sums the f32 P.
 // * Loads: Q once, K/V tiles through a two-stage ring of TMA loads, each
@@ -137,7 +138,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Shape {
-  static constexpr int SW = HD >= 64 ? 128 : 64;  // swizzle span, bytes
+  // swizzle span, bytes: 128 where hd is whole 64-column panels, else
+  // 64 (hd 32: one 32-column panel; hd 160: five)
+  static constexpr int SW = HD % 64 == 0 ? 128 : 64;
   static constexpr int PE = SW / 2;               // hd columns per panel
   static constexpr int TILE = ROWS * HD * 2;      // bytes of one bf16 tile
   // alignment slack, Q, the K/V ring, mbarriers
@@ -265,8 +268,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
         wgmma_rs_n64<1>(o, ah, dv);
         wgmma_rs_n64<1>(o, al, dv);
       } else {
-        wgmma_rs_n32<1>(o, ah, dv);
-        wgmma_rs_n32<1>(o, al, dv);
+        // 32-column panels (hd 32: one; hd 160: five), one m64n32 product
+        // per panel into registers 16 p .. 16 p + 15 of o (columns 32 p ..)
+#pragma unroll
+        for (int p = 0; p < HD / PE; ++p) {
+          float(&op)[16] = *reinterpret_cast<float(*)[16]>(o + 16 * p);
+          const uint64_t dvp = nmajor_desc<SW>(v_s(st) + p * KEYS * SW, kk * 16, KEYS);
+          wgmma_rs_n32<1>(op, ah, dvp);
+          wgmma_rs_n32<1>(op, al, dvp);
+        }
       }
     }
     static_assert(kPTerms == 2, "the P V loop issues a hi and a lo product");
@@ -354,6 +364,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     case 32: return dispatch_dtype<32>(bf16, q, k, v, out, b, s, h, kv, scale, st);
     case 64: return dispatch_dtype<64>(bf16, q, k, v, out, b, s, h, kv, scale, st);
     case 128: return dispatch_dtype<128>(bf16, q, k, v, out, b, s, h, kv, scale, st);
+    case 160: return dispatch_dtype<160>(bf16, q, k, v, out, b, s, h, kv, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -78,6 +78,12 @@
 // the grid would not fill one wave of SMs the walk is split over grid z,
 // each split writes its partial softmax state and paged_chunk_combine
 // merges them (a second launch).
+//
+// Head dims 32, 64, 128 and 160 (stablelm-12b).  At 160 a bf16 key row is
+// 320 bytes (336 with its pad, still 16-byte aligned and free of ldmatrix
+// bank conflicts), Q K^T takes 10 k16 steps and P V 20 n8 tiles per 16
+// rows; the f32 walk's staged tile (46 KB) stays under the 48 KB of static
+// shared memory, and a 64-row partial (41.5 KB) fits its 42 KB ring.
 
 #include "attention_tile.cuh"
 #include "hopper.cuh"
@@ -867,6 +873,7 @@ extern "C" int paged_chunk_attention(const void* q, const void* k_new, const voi
     case 32: return dispatch_dtype<32>(bf16, quant, a);
     case 64: return dispatch_dtype<64>(bf16, quant, a);
     case 128: return dispatch_dtype<128>(bf16, quant, a);
+    case 160: return dispatch_dtype<160>(bf16, quant, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -895,6 +902,8 @@ extern "C" int paged_attention(const void* q, const void* k_pages, const void* v
     case 129: return launch_tc<64, bf, false>(a);
     case 256: return launch_f32<128, float, false>(a);
     case 257: return launch_tc<128, bf, false>(a);
+    case 320: return launch_f32<160, float, false>(a);
+    case 321: return launch_tc<160, bf, false>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -33,7 +33,7 @@ from repro_torch.kernels.paged_attention.ref import (
 NAME = "paged_chunk_attention"
 CACHED_NAME = "paged_attention"
 LAUNCHES = {NAME: 0, CACHED_NAME: 0}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 160)
 ROWS_PER_BLOCK = 8     # PCA_ROWS of the f32 kernel: query rows per block
 #: the bf16 kernel's blocks: up to ONE_WARP_ROWS query rows (t * g) go to
 #: one-warp blocks of 16 rows, more to four-warp blocks of 64 rows; and the

@@ -29,6 +29,9 @@ address is printed on the ``serving on http://...`` line.
 
 Not ported yet, and refused with a non-zero exit rather than served some
 other way: ``--tp`` (tensor-parallel serving, ROADMAP's multi-GPU item).
+A config the paged engine does not serve (``musicgen-medium``'s four
+codebooks, as the JAX engine fails on them, or ``mamba2-2.7b``) exits 2
+with the engine's refusal.
 """
 
 from __future__ import annotations
@@ -43,7 +46,12 @@ import torch
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="paper-agentic")
+    ap.add_argument("--arch", default="paper-agentic",
+                    help="config name: paper-agentic, qwen2-1.5b, "
+                         "granite-8b, nemotron-4-15b, stablelm-12b, "
+                         "pixtral-12b (text only); musicgen-medium and "
+                         "mamba2-2.7b are refused by the paged engine "
+                         "(exit 2)")
     ap.add_argument("--branches", type=int, default=3)
     ap.add_argument("--tokens", type=int, default=8)
     ap.add_argument("--requests", type=int, default=2)
@@ -85,11 +93,17 @@ def main(argv=None) -> int:
     from repro_torch.device import resolve_device
     from repro_torch.explore_ctx import ExplorationDriver, best_of_n
     from repro_torch.models import Model
+    from repro_torch.models.transformer import check_engine_servable
     from repro_torch.obs import Observability
     from repro_torch.runtime import ServeEngine
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    try:                 # before any weights are drawn
+        check_engine_servable(cfg)
+    except NotImplementedError as e:
+        print(f"--arch {args.arch}: {e}", file=sys.stderr)
+        return 2
     if device.type == "cpu":
         if cfg.param_count() > 1e8:  # big archs run reduced on CPU demo
             cfg = reduced(cfg)

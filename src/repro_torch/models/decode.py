@@ -1,13 +1,19 @@
-"""Prefill and one-token decode of the port's two families.
+"""Prefill and one-token decode of the port's families.
 
 Counterparts of ``decode_state_specs``, ``init_decode_state``, ``prefill``
 and ``decode_step`` in ``repro/models/decode.py``:
 
-* dense: the prefill's last-position logits and per-layer K/V.  Attention
-  goes through the flash attention kernel (:func:`repro_torch.kernels.
-  flash_attention.flash_attention`), where the JAX package computes the
-  same function with jnp.  Dense decode runs in the serving engine over
-  paged KV (``runtime/serve_loop.py``), not here.
+* dense, vlm, audio: the prefill returns the last-position logits and the
+  contiguous decode cache ``{"k", "v": [L, b, max_len, kv, hd]}``, zero past
+  the prompt.  Attention goes through the flash attention kernel
+  (:func:`repro_torch.kernels.flash_attention.flash_attention`), where the
+  JAX package computes the same function with jnp.  The VLM stub's
+  ``frontend_embed`` fills the first positions; audio tokens are ``[b, s,
+  cb]`` and its logits ``[b, s, cb, V]``.  :func:`decode_step` writes the
+  new token's K/V row **into the cache it is given** (a scalar ``pos``
+  writes one row for the whole batch, a ``[b]`` ``pos`` scatters) and
+  attends with plain torch ops, as the JAX package does with jnp; paged
+  serving of these families runs in ``runtime/serve_loop.py`` instead.
 * ssm: the prefill returns the decode cache ``{"conv": [L, b, ck-1,
   conv_dim], "ssm": [L, b, H, N, P] f32}``; its scan is the SSD scan kernel
   (:func:`repro_torch.kernels.ssd_scan.ssd_scan`), where the JAX package
@@ -35,7 +41,12 @@ from repro_torch.models.ssm import (
     mamba_decode_block,
     softplus_dt,
 )
-from repro_torch.models.transformer import embed_tokens, lm_head, torch_dtype
+from repro_torch.models.transformer import (
+    ATTN_FAMILIES,
+    embed_tokens,
+    lm_head,
+    torch_dtype,
+)
 
 Params = Dict[str, Any]
 
@@ -46,22 +57,26 @@ Params = Dict[str, Any]
 
 def decode_state_specs(cfg: ArchConfig, batch: int, max_len: int
                        ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """``{name: (shape, dtype)}`` of an SSM decode cache (``max_len`` is
-    unused: the state does not grow).  Dense decode keeps its KV in the
-    serving engine's pages."""
+    """``{name: (shape, dtype)}`` of a decode cache: contiguous K/V for
+    the dense, vlm and audio families, the recurrent state for SSM
+    (``max_len`` unused: the state does not grow)."""
+    dt = torch_dtype(cfg)
+    if cfg.family in ATTN_FAMILIES:
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"k": (shape, dt), "v": (shape, dt)}
     if cfg.family != "ssm":
         raise NotImplementedError(
-            f"no decode cache for family {cfg.family}: dense decode runs "
-            "over paged KV in ServeEngine")
+            f"no decode cache for family {cfg.family} in the port yet")
     ck, cdim = cfg.ssm_conv_kernel, cfg.ssm_conv_dim
     H, N, Pd = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
-    return {"conv": ((cfg.num_layers, batch, ck - 1, cdim), torch_dtype(cfg)),
+    return {"conv": ((cfg.num_layers, batch, ck - 1, cdim), dt),
             "ssm": ((cfg.num_layers, batch, H, N, Pd), torch.float32)}
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device: Any = None) -> Dict[str, torch.Tensor]:
-    """A zero SSM decode cache on ``device`` (``cuda`` unless given)."""
+    """A zero decode cache on ``device`` (``cuda`` unless given)."""
     device = resolve_device(device)
     return {k: torch.zeros(shape, dtype=dtype, device=device)
             for k, (shape, dtype)
@@ -72,21 +87,25 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
 # prefill
 # ---------------------------------------------------------------------------
 
-def prefill(cfg: ArchConfig, p: Params, tokens: torch.Tensor, *,
+def prefill(cfg: ArchConfig, p: Params, tokens: torch.Tensor,
+            frontend_embed: Optional[torch.Tensor] = None, *,
             max_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """tokens [b, s] -> (last-position logits [b, 1, V], cache).
+    """tokens ``[b, s]`` (``[b, s, cb]`` for audio) -> (last-position
+    logits ``[b, 1, V]`` or ``[b, 1, cb, V]``, cache).
 
-    Dense: the cache holds ``"k"``/``"v"`` as ``[L, b, max_len, kv, hd]``,
-    zero past ``s``.  SSM: ``"conv"``/``"ssm"`` (``max_len`` unused).
+    Dense, vlm, audio: the cache holds ``"k"``/``"v"`` as ``[L, b, max_len,
+    kv, hd]``, zero past ``s``; ``frontend_embed`` ``[b, n, d]`` (VLM stub)
+    fills positions ``[0, n)``.  SSM: ``"conv"``/``"ssm"`` (``max_len``
+    unused).
     """
     if cfg.family == "ssm":
         return _ssm_prefill(cfg, p, tokens)
-    b, s = tokens.shape
+    b, s = tokens.shape[:2]
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} < prompt length {s}")
-    h = embed_tokens(cfg, p, tokens)
+    h = embed_tokens(cfg, p, tokens, frontend_embed)
     positions = torch.arange(s, device=tokens.device)
     cache = {name: torch.zeros((cfg.num_layers, b, max_len,
                                 cfg.num_kv_heads, cfg.head_dim),
@@ -154,24 +173,42 @@ def _mamba_prefill(cfg: ArchConfig, lp: Params, x: torch.Tensor):
 def decode_step(cfg: ArchConfig, p: Params, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One new token for every sequence of an SSM cache; returns (logits
-    [b, 1, V], a new cache).  ``tokens`` [b, 1]; ``pos`` [b] is unused by
-    the recurrence (kept for the JAX signature).  Out of place."""
-    if cfg.family != "ssm":
+    """One new token for every sequence; returns (logits ``[b, 1, V]`` or
+    ``[b, 1, cb, V]``, the cache).  ``tokens`` ``[b, 1]`` (``[b, 1, cb]``
+    for audio).
+
+    Dense, vlm, audio: ``pos`` is a scalar (aligned batch) or ``[b]``; the
+    token's K/V row is written into ``cache`` in place and the same tensors
+    are returned (a cache restored from a ``BranchStore`` is shared with
+    its siblings: clone it first, or the store refuses its next read).  SSM: ``pos`` is unused by the recurrence (kept for the
+    JAX signature) and the step is out of place: new tensors are returned.
+    """
+    if cfg.family not in ATTN_FAMILIES + ("ssm",):
         raise NotImplementedError(
-            "dense decode runs over paged KV in ServeEngine")
+            f"no decode step for family {cfg.family} in the port yet")
     h = embed_tokens(cfg, p, tokens)
     new_cache = dict(cache)
-    # fresh tensors, filled layer by layer: the input cache is only read
-    new_cache["conv"] = torch.empty_like(cache["conv"])
-    new_cache["ssm"] = torch.empty_like(cache["ssm"])
-    for i in range(cfg.num_layers):
-        lp = L.layer_params(p["layers"], i)
-        x = L.rms_norm(h, lp["ln"], cfg.norm_eps)
-        y, conv, ssm = mamba_decode_block(cfg, lp["mamba"], x,
-                                          cache["conv"][i], cache["ssm"][i])
-        new_cache["conv"][i] = conv
-        new_cache["ssm"][i] = ssm
-        h = h + y
+    if cfg.family in ATTN_FAMILIES:
+        for i in range(cfg.num_layers):
+            lp = L.layer_params(p["layers"], i)
+            x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+            a, _, _ = L.attention_decode_block(cfg, lp["attn"], x, pos,
+                                               cache["k"][i], cache["v"][i])
+            h = h + a
+            x = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+            h = h + L.mlp_block(cfg, lp["mlp"], x)
+    else:
+        # fresh tensors, filled layer by layer: the input cache is only read
+        new_cache["conv"] = torch.empty_like(cache["conv"])
+        new_cache["ssm"] = torch.empty_like(cache["ssm"])
+        for i in range(cfg.num_layers):
+            lp = L.layer_params(p["layers"], i)
+            x = L.rms_norm(h, lp["ln"], cfg.norm_eps)
+            y, conv, ssm = mamba_decode_block(cfg, lp["mamba"], x,
+                                              cache["conv"][i],
+                                              cache["ssm"][i])
+            new_cache["conv"][i] = conv
+            new_cache["ssm"][i] = ssm
+            h = h + y
     h = L.rms_norm(h, p["final_norm"], cfg.norm_eps)
     return lm_head(cfg, p, h), new_cache

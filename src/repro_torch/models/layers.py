@@ -1,4 +1,5 @@
-"""Dense transformer layers of the port: norm, rotary, GQA projection, MLP.
+"""Dense transformer layers of the port: norm, rotary, GQA projection, MLP
+and one-token decode attention over a contiguous KV cache.
 
 Counterparts of ``repro/models/layers.py``.  Parameters keep the JAX
 package's layout (``wq`` is ``[d, h, hd]``, ``wo`` is ``[h, hd, d]``, ...)
@@ -32,7 +33,7 @@ def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
     std = 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)      # in place: one f32 draw at a time
 
 
 def layer_params(p: Any, i: int) -> Any:
@@ -134,15 +135,82 @@ def attn_out(a: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return a.reshape(*a.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
 
 
+def decode_attention_dense(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, lengths: torch.Tensor
+                           ) -> torch.Tensor:
+    """One-token decode attention against a contiguous ``[b, S, kv, hd]``
+    cache.  q: ``[b, 1, h, hd]``; lengths: ``[b]``, the valid cache
+    positions (the token just written included).  Scores and softmax in
+    f32, the probabilities rounded to the cache's type for the product with
+    V, as the JAX package does."""
+    b, _, h, hd = q.shape
+    kvh = k_cache.shape[2]
+    qr = q.reshape(b, kvh, h // kvh, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qr.float(),
+                          k_cache.float()) * (1.0 / math.sqrt(hd))
+    pos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = pos[None, :] < lengths[:, None]                  # [b, S]
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", probs.to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, h, hd)
+
+
+def attention_decode_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                           pos: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Decode: write this token's K/V at ``pos``, then attend.
+
+    x: ``[b, 1, d]``.  ``pos`` is a scalar tensor (a position-aligned
+    batch: one row written for every sequence) or ``[b]`` (per-sequence
+    positions, scattered).  The row is written **into the cache it is
+    given**, which is also returned: a copy of the whole cache per step
+    would move ``L * b * max_len * kv * hd`` elements for every token.
+    Returns (out ``[b, 1, d]``, k_cache, v_cache).
+    """
+    b = x.shape[0]
+    if pos.dim() == 0:
+        q, k, v = qkv_project(cfg, p, x, pos.reshape(1, 1))
+        row = pos.reshape(1).long()
+        k_cache.index_copy_(1, row, k)
+        v_cache.index_copy_(1, row, v)
+        lengths = (pos + 1).expand(b)
+    else:
+        q, k, v = qkv_project(cfg, p, x, pos[:, None])
+        idx = (torch.arange(b, device=x.device), pos.long())
+        k_cache.index_put_(idx, k[:, 0])
+        v_cache.index_put_(idx, v[:, 0])
+        lengths = pos + 1
+    out = decode_attention_dense(q, k_cache, v_cache, lengths)
+    return attn_out(out, p["wo"]), k_cache, v_cache
+
+
 def init_mlp(cfg: ArchConfig, gen: torch.Generator,
              dtype: torch.dtype) -> Params:
-    """SwiGLU weights (the only activation of the served configs)."""
+    """MLP weights: ``wu``, ``wd``, and the gate ``wg`` for the gated
+    activations (swiglu, geglu); sqrelu has no gate."""
     d, f = cfg.d_model, cfg.d_ff
-    return {"wu": dense_init(gen, (d, f), dtype),
-            "wd": dense_init(gen, (f, d), dtype),
-            "wg": dense_init(gen, (d, f), dtype)}
+    p = {"wu": dense_init(gen, (d, f), dtype),
+         "wd": dense_init(gen, (f, d), dtype)}
+    if cfg.mlp_activation in ("swiglu", "geglu"):
+        p["wg"] = dense_init(gen, (d, f), dtype)
+    return p
 
 
 def mlp_block(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: (silu(x wg) * (x wu)) wd."""
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    """swiglu: (silu(x wg) * (x wu)) wd; geglu: (gelu(x wg) * (x wu)) wd
+    with gelu's tanh form (``jax.nn.gelu``'s default, not torch's); sqrelu:
+    relu(x wu)^2 wd."""
+    act = cfg.mlp_activation
+    up = x @ p["wu"]
+    if act == "swiglu":
+        h = F.silu(x @ p["wg"]) * up
+    elif act == "geglu":
+        h = F.gelu(x @ p["wg"], approximate="tanh") * up
+    elif act == "sqrelu":
+        h = torch.square(F.relu(up))
+    else:
+        raise ValueError(f"unknown activation {act}")
+    return h @ p["wd"]

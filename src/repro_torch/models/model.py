@@ -26,14 +26,19 @@ class Model:
         return T.init_transformer(self.cfg, generator)
 
     def prefill(self, params: Params, tokens: torch.Tensor,
+                frontend_embed: Optional[torch.Tensor] = None,
                 max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        return D.prefill(self.cfg, params, tokens, max_len=max_len)
+        """The prompt (``frontend_embed``: the VLM stub's patch
+        embeddings) -> (last-position logits, decode cache)."""
+        return D.prefill(self.cfg, params, tokens, frontend_embed,
+                         max_len=max_len)
 
     def decode_step(self, params: Params, cache: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, pos: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """One token per sequence of an SSM cache, out of place."""
+        """One token per sequence: in place over a contiguous KV cache,
+        out of place over an SSM cache."""
         return D.decode_step(self.cfg, params, cache, tokens, pos)
 
     def init_decode_state(self, batch: int, max_len: int,

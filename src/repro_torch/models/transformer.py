@@ -1,6 +1,6 @@
-"""Parameters, embedding and output head of the port's two families.
+"""Parameters, embedding and output head of the port's families.
 
-Counterparts of ``init_transformer`` (dense and ssm branches),
+Counterparts of ``init_transformer`` (dense, vlm, audio and ssm branches),
 ``embed_tokens`` and ``lm_head`` in ``repro/models/transformer.py``.
 Parameters are a plain dict of tensors in the JAX package's layout, layers
 stacked ``[L, ...]``.
@@ -8,7 +8,7 @@ stacked ``[L, ...]``.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -20,74 +20,147 @@ Params = Dict[str, Any]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+#: the families with attention + MLP layers the port serves
+ATTN_FAMILIES = ("dense", "vlm", "audio")
+MLP_ACTIVATIONS = ("swiglu", "geglu", "sqrelu")
+#: of those, the families the paged ServeEngine serves (the VLM stub's
+#: text path; several codebooks are refused)
+ENGINE_FAMILIES = ("dense", "vlm")
+#: the families still to port -> where ROADMAP queues them
+TO_PORT = {"hybrid": "ROADMAP §1, still to port: the hybrid family",
+           "moe": "ROADMAP §1, still to port: MoE"}
+
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
 def check_servable(cfg: ArchConfig) -> None:
-    """The port serves the single-codebook swiglu dense family and the
-    attention-free SSM (Mamba2) family."""
+    """The port serves the dense, VLM-stub and audio (multi-codebook)
+    families with any of the three MLPs, and the attention-free SSM
+    (Mamba2) family."""
     if cfg.family == "ssm" and cfg.ssm_groups == 1:
         return
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name} (hybrid): the shared-attention hybrid family is "
-            "not ported yet (ROADMAP queue 1, the hybrid family)")
-    if (cfg.family != "dense" or cfg.is_moe or cfg.num_codebooks > 1
-            or cfg.frontend != "none" or cfg.mlp_activation != "swiglu"):
+            f"not ported yet ({TO_PORT['hybrid']})")
+    if cfg.is_moe or cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name} (moe): the MoE FFN is not ported yet "
+            f"({TO_PORT['moe']})")
+    if (cfg.family not in ATTN_FAMILIES
+            or cfg.mlp_activation not in MLP_ACTIVATIONS):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}, {cfg.mlp_activation}): the port "
-            "serves the swiglu dense family and the SSM family; MoE, VLM "
-            "and audio are ROADMAP queue 1")
+            f"serves the {'/'.join(ATTN_FAMILIES)} families with "
+            f"{'/'.join(MLP_ACTIVATIONS)} MLPs, and the SSM family")
+
+
+def check_engine_servable(cfg: ArchConfig) -> None:
+    """The paged engine serves the dense family and the VLM stub's text
+    path; several codebooks (audio), the SSM family and whatever
+    :func:`check_servable` refuses are refused."""
+    check_servable(cfg)
+    if cfg.num_codebooks > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the paged engine serves one token per row; "
+            f"{cfg.num_codebooks} codebooks run through Model.prefill / "
+            "Model.decode_step over a contiguous cache (the JAX package's "
+            "engine fails on them too)")
+    if cfg.family not in ENGINE_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): the paged engine serves the "
+            f"{'/'.join(ENGINE_FAMILIES)} (text) families; the SSM family "
+            "runs through Model.prefill / decode_step and BranchStore")
 
 
 def init_transformer(cfg: ArchConfig, gen: torch.Generator) -> Params:
-    """Random weights drawn from ``gen`` on its device."""
+    """Random weights drawn from ``gen`` on its device.  Each stacked
+    ``[L, ...]`` leaf is allocated once and filled layer by layer, so the
+    peak is the model plus one layer and one f32 draw."""
     check_servable(cfg)
     dtype = torch_dtype(cfg)
     dev = gen.device
-    d, n = cfg.d_model, cfg.num_layers
-    p: Params = {"embed": L.dense_init(gen, (cfg.vocab_size, d), dtype,
-                                       fan_in=d)}
-    layers = []
-    for _ in range(n):
-        if cfg.family == "ssm":
-            layers.append({
-                "ln": torch.ones((d,), dtype=dtype, device=dev),
-                "mamba": init_mamba(cfg, gen, dtype),
-            })
-            continue
-        layers.append({
-            "ln1": torch.ones((d,), dtype=dtype, device=dev),
-            "ln2": torch.ones((d,), dtype=dtype, device=dev),
-            "attn": L.init_attention(cfg, gen, dtype),
-            "mlp": L.init_mlp(cfg, gen, dtype),
-        })
-    p["layers"] = _stack(layers)
+    d, n, cb = cfg.d_model, cfg.num_layers, cfg.num_codebooks
+    embed_shape = (cb, cfg.vocab_size, d) if cb > 1 else (cfg.vocab_size, d)
+    p: Params = {"embed": L.dense_init(gen, embed_shape, dtype, fan_in=d)}
+    if cfg.frontend == "vlm_stub":
+        p["frontend_proj"] = L.dense_init(gen, (d, d), dtype)
+    if cfg.family == "ssm":
+        def one() -> Params:
+            return {"ln": torch.ones((d,), dtype=dtype, device=dev),
+                    "mamba": init_mamba(cfg, gen, dtype)}
+    else:
+        def one() -> Params:
+            return {"ln1": torch.ones((d,), dtype=dtype, device=dev),
+                    "ln2": torch.ones((d,), dtype=dtype, device=dev),
+                    "attn": L.init_attention(cfg, gen, dtype),
+                    "mlp": L.init_mlp(cfg, gen, dtype)}
+    p["layers"] = _stacked(n, one)
     p["final_norm"] = torch.ones((d,), dtype=dtype, device=dev)
     if not cfg.tie_embeddings:
-        p["lm_head"] = L.dense_init(gen, (d, cfg.vocab_size), dtype,
+        p["lm_head"] = L.dense_init(gen, (d, cb * cfg.vocab_size), dtype,
                                     fan_in=d)
     return p
 
 
-def _stack(trees: list) -> Any:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    out = torch.stack(trees)
-    trees.clear()         # drop the per-layer copies as soon as stacked
+def _stacked(n: int, one: Callable[[], Params]) -> Params:
+    """``n`` draws of the layer tree ``one()`` stacked ``[n, ...]``: every
+    leaf is allocated once, and each layer's draw is copied into its slot
+    and dropped before the next is drawn."""
+    first = one()
+
+    def alloc(x: Any) -> Any:
+        if isinstance(x, dict):
+            return {k: alloc(v) for k, v in x.items()}
+        return x.new_empty((n, *x.shape))
+
+    def fill(dst: Any, i: int, src: Any) -> None:
+        if isinstance(dst, dict):
+            for k in dst:
+                fill(dst[k], i, src[k])
+        else:
+            dst[i].copy_(src)
+
+    out = alloc(first)
+    fill(out, 0, first)
+    del first
+    for i in range(1, n):
+        fill(out, i, one())
     return out
 
 
-def embed_tokens(cfg: ArchConfig, p: Params,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [b, s] -> hidden [b, s, d]."""
-    return p["embed"][tokens]
+def embed_tokens(cfg: ArchConfig, p: Params, tokens: torch.Tensor,
+                 frontend_embed: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """tokens ``[b, s]`` (``[b, s, cb]`` for several codebooks) -> hidden
+    ``[b, s, d]``.  Codebook embeddings are summed in order in the model's
+    type, as the JAX package does.  For the VLM stub, ``frontend_embed``
+    ``[b, n, d]`` (precomputed patch embeddings) is projected by
+    ``frontend_proj`` and replaces positions ``[0, n)``."""
+    if cfg.num_codebooks > 1:
+        h = p["embed"][0][tokens[..., 0]]
+        for i in range(1, cfg.num_codebooks):
+            h = h + p["embed"][i][tokens[..., i]]
+    else:
+        h = p["embed"][tokens]
+    if cfg.frontend == "vlm_stub" and frontend_embed is not None:
+        n = frontend_embed.shape[1]
+        if n > h.shape[1]:
+            raise ValueError(f"frontend_embed covers {n} positions of a "
+                             f"{h.shape[1]}-token sequence")
+        h[:, :n] = frontend_embed.to(h.dtype) @ p["frontend_proj"]
+    return h
 
 
 def lm_head(cfg: ArchConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
-    """h: [b, s, d] -> logits [b, s, V]."""
+    """h: ``[b, s, d]`` -> logits ``[b, s, V]``, or ``[b, s, cb, V]``
+    codebook-major (column ``c * V + v``) for several codebooks."""
     if cfg.tie_embeddings:
-        return h @ p["embed"].T
-    return h @ p["lm_head"]
+        logits = h @ p["embed"].T
+    else:
+        logits = h @ p["lm_head"]
+    if cfg.num_codebooks > 1:
+        logits = logits.unflatten(-1, (cfg.num_codebooks, cfg.vocab_size))
+    return logits

@@ -20,6 +20,9 @@ The PyTorch counterpart of ``repro/runtime/serve_loop.py``, single device:
 * ``commit`` resolves first-commit-wins; ``checkpoint``/``restore`` move a
   branch's pages to the host tier and back.
 * ``kv_dtype="int8"`` stores int8 pools with per-page/per-kv-head scales.
+* It serves the dense family and the VLM stub's text path (no image:
+  ``add_request`` takes tokens only, as in the JAX engine), with any of the
+  three MLPs; several codebooks (audio) are refused at construction.
 
 Attention is :func:`repro_torch.kernels.paged_attention.
 paged_chunk_attention` (fused decode, verify, suffix prefill — on both
@@ -52,7 +55,12 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import embed_tokens, lm_head, torch_dtype
+from repro_torch.models.transformer import (
+    check_engine_servable,
+    embed_tokens,
+    lm_head,
+    torch_dtype,
+)
 from repro_torch.obs import ENGINE_TRACK, Observability
 
 Pools = List[Optional[torch.Tensor]]   # [k_pages, v_pages, k_scales, v_scales]
@@ -200,6 +208,7 @@ class ServeEngine:
                 "kv_dtype='int8' requires the fused decode path "
                 "(attn_impl 'auto'); the legacy 'ref' gather is fp-only")
         cfg = model.cfg
+        check_engine_servable(cfg)
         self.model = model
         self.cfg: ArchConfig = cfg
         self.device = resolve_device(device)

@@ -81,8 +81,8 @@ def paged_case(gen, b, t, kv, g, hd, page, lengths, dtype, quant):
                                          (torch.bfloat16, False),
                                          (torch.bfloat16, True)],
                          ids=["f32", "bf16", "int8"])
-@pytest.mark.parametrize("hd,g,t", [(32, 2, 1), (64, 1, 9), (128, 6, 40)],
-                         ids=str)
+@pytest.mark.parametrize("hd,g,t", [(32, 2, 1), (64, 1, 9), (128, 6, 40),
+                                    (160, 4, 1), (160, 4, 9)], ids=str)
 def test_paged_chunk_attention_kernel(gen, hd, g, t, dtype, quant):
     case = paged_case(gen, 3, t, 2, g, hd, 16, [0, 70, 33], dtype, quant)
     # bf16: one cluster launch; f32: the walk, and the combine when split
@@ -100,7 +100,8 @@ def test_paged_chunk_attention_kernel(gen, hd, g, t, dtype, quant):
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("t", [1, 4, 255])
-@pytest.mark.parametrize("hd,g", [(32, 2), (64, 1), (128, 6)], ids=str)
+@pytest.mark.parametrize("hd,g", [(32, 2), (64, 1), (128, 6), (160, 4)],
+                         ids=str)
 def test_paged_chunk_attention_tensor_cores(gen, hd, g, t, quant):
     # the bf16 walk (one-warp blocks up to 32 rows, 64-row tiles above),
     # bf16 and int8 pools, a CoW redirect and a zero-length row: one launch
@@ -206,7 +207,8 @@ def test_paged_walk_refuses_a_split_above_the_cluster_limit(gen,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("s,h,kv,hd", [(1, 4, 2, 32), (77, 6, 2, 64),
-                                       (300, 12, 2, 128)], ids=str)
+                                       (300, 12, 2, 128), (77, 4, 4, 64),
+                                       (300, 8, 2, 160)], ids=str)
 def test_flash_attention_kernel(gen, s, h, kv, hd, dtype):
     q = torch.randn(2, s, h, hd, generator=gen, device="cuda").to(dtype)
     k = torch.randn(2, s, kv, hd, generator=gen, device="cuda").to(dtype)
@@ -229,6 +231,24 @@ def test_flash_attention_tensor_cores_at_the_prefill_shape(gen, s):
     k = torch.randn(1, s, 2, 128, generator=gen, device="cuda").bfloat16()
     v = torch.randn(1, s, 2, 128, generator=gen, device="cuda").bfloat16()
     out = flash_ops.flash_attention(q, k, v)
+    torch.testing.assert_close(out.float(),
+                               flash_attention_ref(q, k, v).float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("s,h,kv,hd", [(1023, 32, 8, 160), (2048, 32, 8, 160),
+                                       (1025, 24, 24, 64)], ids=str)
+def test_flash_attention_tensor_cores_at_the_families_shapes(gen, s, h, kv,
+                                                             hd):
+    # stablelm-12b's prefill (hd 160: five 32-column panels, 64-byte
+    # swizzle) and musicgen-medium's (MHA, g 1), bf16 on wgmma
+    q = torch.randn(1, s, h, hd, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(1, s, kv, hd, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(1, s, kv, hd, generator=gen, device="cuda").bfloat16()
+    before = flash_ops.LAUNCHES[flash_ops.NAME]
+    out = flash_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES[flash_ops.NAME] == before + 1
     torch.testing.assert_close(out.float(),
                                flash_attention_ref(q, k, v).float(),
                                **TOL[torch.bfloat16])
@@ -262,9 +282,62 @@ def test_engine_on_the_card_matches_the_cpu(gen):
     assert out["cuda"] == out["cpu"]
 
 
+@pytest.mark.parametrize("attn_impl", ["auto", "ref"])
+def test_hd160_engine_on_the_card_matches_the_cpu(gen, attn_impl):
+    """stablelm-12b's head dim through the engine: K2's prefill, K1's
+    fused step or K3's legacy one, float32, card against CPU."""
+    cfg = dataclasses.replace(get_config("paper-agentic"), d_model=640,
+                              num_heads=4, num_kv_heads=2, head_dim=160,
+                              num_layers=2, dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(model, params, num_pages=64, page_size=4,
+                          max_pages_per_seq=16, device=dev,
+                          attn_impl=attn_impl if dev == "cuda" else "auto")
+        sid = eng.add_request([5, 17, 3, 42, 7, 11, 2, 9, 30, 4, 8, 1, 22])
+        toks = eng.decode([sid])
+        kids = eng.fork(sid, 3)
+        toks += eng.decode(kids) + eng.decode(kids)
+        toks += eng.spec_verify(kids[0], [[1, 2, 3]])[0]
+        out[dev] = toks
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("name", ["musicgen-medium", "pixtral-12b"])
+def test_contiguous_decode_on_the_card_matches_the_cpu(gen, name):
+    """Model.prefill (K2; pixtral with a frontend_embed prefix) and greedy
+    decode_steps over the contiguous cache, float32, card against CPU."""
+    cfg = dataclasses.replace(reduced(get_config(name), d_model=128),
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    cb = cfg.num_codebooks
+    tokens = rng.integers(0, cfg.vocab_size, (2, 30, cb) if cb > 1
+                          else (2, 30))
+    fe = rng.standard_normal((2, 8, cfg.d_model), np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        logits, cache = model.prefill(
+            p, torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(fe).to(dev) if cfg.frontend == "vlm_stub"
+            else None, max_len=36)
+        toks = []
+        for i in range(6):
+            tok = logits[:, -1].argmax(-1)
+            toks.append(tok.tolist())
+            logits, cache = model.decode_step(
+                p, cache, tok[:, None], torch.full((2,), 30 + i, device=dev))
+        out[dev] = toks
+    assert out["cuda"] == out["cpu"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("hd,g", [(32, 2), (128, 6)], ids=str)
+@pytest.mark.parametrize("hd,g", [(32, 2), (128, 6), (160, 4)], ids=str)
 def test_paged_attention_kernel(gen, hd, g, dtype):
     # cached-only decode: ragged lengths, a zero-length row (zeros, not
     # NaN), a full last page; split or not as the wrapper decides

@@ -23,6 +23,7 @@ from repro.configs.base import reduced
 from repro.models.model import Model as JaxModel
 from repro_torch.bridge import params_from_jax, tensor_from_numpy
 from repro_torch.configs import get_config as port_config
+from repro_torch.configs import list_archs
 from repro_torch.configs.base import reduced as port_reduced
 from repro_torch.models import Model
 
@@ -48,12 +49,12 @@ def reference(name):
                                           init(jax.random.PRNGKey(0)))
 
 
-def test_port_config_copies_match_the_reference():
-    for name in ("paper-agentic", "qwen2-1.5b"):
-        assert dataclasses.asdict(port_config(name)) == \
-            dataclasses.asdict(get_config(name))
-        assert dataclasses.asdict(port_reduced(port_config(name))) == \
-            dataclasses.asdict(reduced(get_config(name)))
+@pytest.mark.parametrize("name", list_archs())
+def test_port_config_copies_match_the_reference(name):
+    assert dataclasses.asdict(port_config(name)) == \
+        dataclasses.asdict(get_config(name))
+    assert dataclasses.asdict(port_reduced(port_config(name))) == \
+        dataclasses.asdict(reduced(get_config(name)))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16],

@@ -172,5 +172,5 @@ def test_short_prompts_and_other_families_are_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(hybrid)
     with pytest.raises(NotImplementedError):
-        port_decode.decode_step(port_config("paper-agentic"), {}, {},
-                                torch.zeros(1, 1).long(), torch.zeros(1))
+        port_decode.decode_step(hybrid, {}, {}, torch.zeros(1, 1).long(),
+                                torch.zeros(1))

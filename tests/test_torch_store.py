@@ -154,3 +154,64 @@ def test_siblings_decoding_leave_root_untouched():
         leaf = st.read(st.ROOT, k)
         assert leaf.data_ptr() == ptr and torch.equal(leaf, copy)
     assert len({st.read(k, "['ssm']").data_ptr() for k in kids}) == 4
+
+
+def test_a_leaf_written_in_place_after_it_was_stored_is_refused():
+    """The store shares tensors by reference, so it stamps each tensor
+    leaf with its version counter: a write into it since (directly or
+    through a view) makes its next read raise, on every branch that
+    resolves to it.  A clone written back is a leaf of its own; a commit
+    carries its stamp into the parent; non-tensor leaves and inference
+    tensors are not checked."""
+    st = port_store.BranchStore({"t": torch.zeros(4), "n": 3})
+    kid, sib = st.fork(st.ROOT, 2)
+    mine = st.read(kid, "t").clone()
+    mine += 1
+    st.write(kid, "t", mine)
+    assert torch.equal(st.read(sib, "t"), torch.zeros(4))
+    st.read(st.ROOT, "t")[1:2].fill_(7)       # through a view
+    for branch in (st.ROOT, sib):
+        with pytest.raises(port_store.BranchStateError, match="in place"):
+            st.read(branch, "t")
+    with pytest.raises(port_store.BranchStateError):
+        st.consolidated_view(sib)
+    assert torch.equal(st.read(kid, "t"), torch.ones(4))
+    st.commit(kid)
+    assert torch.equal(st.read(st.ROOT, "t"), torch.ones(4))
+    assert st.read(st.ROOT, "n") == 3
+    with torch.inference_mode():
+        frozen = torch.zeros(2)
+    st.write(st.ROOT, "i", frozen)
+    assert st.read(st.ROOT, "i") is frozen
+
+
+def test_a_dense_cache_stepped_in_place_is_refused_and_a_clone_is_not():
+    """The dense ``decode_step`` writes the token's K/V row into the cache
+    it is given.  A branch that steps a clone of its restored cache leaves
+    its sibling's view as snapshotted; one that steps the restored tensors
+    themselves writes into the snapshot the siblings share, and their next
+    read raises instead of handing it out."""
+    cfg = dataclasses.replace(reduced(get_config("granite-8b")),
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 7)))
+    logits, cache = model.prefill(params, tokens, max_len=12)
+    snap = {k: v.clone() for k, v in cache.items()}
+    st = port_store.BranchStore()
+    st.snapshot_pytree(st.ROOT, cache)
+    del cache
+    a, b = st.fork(st.ROOT, 2)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    mine = {k: v.clone() for k, v in st.restore_pytree(a, snap).items()}
+    _, mine = model.decode_step(params, mine, tok, torch.tensor([7]))
+    st.snapshot_pytree(a, mine)
+    theirs = st.restore_pytree(b, snap)
+    assert all(torch.equal(theirs[k], snap[k]) for k in snap)
+    assert not torch.equal(st.read(a, "['k']"), snap["k"])
+    model.decode_step(params, theirs, tok, torch.tensor(7))
+    for branch in (st.ROOT, b):
+        with pytest.raises(port_store.BranchStateError, match="in place"):
+            st.restore_pytree(branch, snap)
+    assert not torch.equal(st.read(a, "['k']"), snap["k"])

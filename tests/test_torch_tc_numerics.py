@@ -337,7 +337,9 @@ def paged_inputs(seed, b, t, kv, g, hd, lengths, quant, page=16):
 
 RAGGED = [0, 1, 16, 17, 333, 700, 1055, 40]
 #: (name, b, t, g, hd, lengths, int8 pools, K3): decode, verify and suffix
-#: prefill at qwen2-1.5b's widths (kv 2, g 6, hd 128), and hd 32 / 64
+#: prefill at qwen2-1.5b's widths (kv 2, g 6, hd 128), at stablelm-12b's
+#: head (g 4, hd 160: 10 k16 steps of q.k, 20 n8 tiles of P.V), and hd 32
+#: / 64
 PAGED_CASES = [
     ("decode", 8, 1, 6, 128, RAGGED, False, False),
     ("decode_int8", 8, 1, 6, 128, RAGGED, True, False),
@@ -350,6 +352,11 @@ PAGED_CASES = [
     ("hd32_k3", 6, 1, 2, 32, [0, 1, 16, 700, 1055, 333], False, True),
     ("hd64_t9", 3, 9, 1, 64, [0, 70, 33], False, False),
     ("hd32_t40_int8", 3, 40, 2, 32, [0, 700, 33], True, False),
+    ("hd160_decode", 8, 1, 4, 160, RAGGED, False, False),
+    ("hd160_decode_int8", 8, 1, 4, 160, RAGGED, True, False),
+    ("hd160_k3", 8, 1, 4, 160, RAGGED, False, True),
+    ("hd160_verify", 4, 4, 4, 160, [0, 1, 500, 1000], False, False),
+    ("hd160_suffix_prefill", 1, 255, 4, 160, [512], False, False),
 ]
 _PAGED_REF = {}
 
@@ -387,8 +394,12 @@ def ratios(out_f32: torch.Tensor, ref_f32: torch.Tensor, dtype) -> dict:
     return {"raw": raw.item(), "tol": tol.item()}
 
 
+#: (s, h, kv, hd): qwen2-1.5b's prefill widths, stablelm-12b's hd 160 (five
+#: 32-column panels, the same sums per output element) and musicgen-
+#: medium's MHA (g 1, hd 64)
 FLASH_CASES = [(1, 12, 2, 128), (77, 12, 2, 128), (1023, 12, 2, 128),
-               (40, 4, 2, 32), (130, 4, 1, 64)]
+               (40, 4, 2, 32), (130, 4, 1, 64), (300, 8, 2, 160),
+               (1023, 4, 1, 160), (130, 4, 4, 64)]
 SSD_CASES = [(s, 3, 64, N) for s in (1, 63, 64, 65, 1000, 4096)
              for N in (128, 64)]
 
