@@ -21,7 +21,11 @@ Phases (any failure exits non-zero; nothing is caught into success):
    parity geometry: t 1, 4 and 37), and at stablelm-12b's head (hd 160,
    g 4; t 1, 4 and 255; f32, bf16 and int8 pools; pages 16 and 4); flash
    attention (K2) at qwen2-1.5b's widths, at hd 160 (h 32, kv 8) and at
-   musicgen-medium's MHA (g 1, hd 64), s 1023 and 2048, bf16 and f32;
+   musicgen-medium's MHA (g 1, hd 64), at zamba2-7b's shared block (h 32
+   = kv, hd 112, staged as hd 128 with zero columns), at
+   qwen3-moe-235b-a22b's (h 64, kv 4: g 16) and dbrx-132b's (h 48, kv 8),
+   s 1023 and 2048, bf16 and f32; K1 also at g 16 (t 1, 4 and 255; f32,
+   bf16 and int8 pools; pages 16 and 4);
    cached-only paged attention (K3) at qwen2-1.5b's widths and at hd 160,
    b=32, ragged lengths, pages 16 and 4; the SSD scan (K4) at
    mamba2-2.7b's widths (80 heads, P 64, N 128, and N 64), s 1000 and
@@ -48,7 +52,12 @@ Phases (any failure exits non-zero; nothing is caught into success):
    ``frontend_embed``) through ``Model.prefill`` and contiguous
    ``decode_step``s, identical greedy tokens (per codebook); the
    mamba2-2.7b widths at 4 layers in float32, the branching cycle,
-   identical tokens and committed state within 1e-4; a greedy
+   identical tokens and committed state within 1e-4; zamba2-7b's widths at
+   7 layers (one shared-block application and a one-layer tail), the same
+   cycle over the hybrid cache, identical tokens and committed state
+   within 1e-4 + 1e-4 |cpu|; qwen3-moe-235b-a22b's and dbrx-132b's widths
+   at 2 layers through the engine, fused and legacy, identical greedy
+   tokens and expert ids at every routing call; a greedy
    ``BranchSession`` run and a ``speculative_decode`` round, identical
    tokens and verified prefixes; the front door in process
    (``FrontDoor.dispatch``, page 4): a greedy ``/v1/generate`` stream with
@@ -102,15 +111,26 @@ Phases (any failure exits non-zero; nothing is caught into success):
    ``frontend_embed`` and 128 text tokens (K2 over 1152 positions) and 16
    contiguous decode steps, and musicgen-medium (b = 8 prompts of 512
    frames × 4 codebooks, ``max_len`` 1024, 32 contiguous decode steps);
+12. (run before 10, after 11) zamba2-7b at full width and depth in bf16
+   through ``Model`` and ``BranchStore`` — prompts of 512, 1024, 1536
+   and 2048 tokens (81 SSD-scan and 13 hd 112 flash-attention launches
+   each), each in its own store forked 4 ways (b = 16) into a 2080-position
+   cache, 32 batched steps, one winner committed per request, its siblings
+   stale and reaped, device memory back within 5%; then
+   qwen3-moe-235b-a22b (12 of 94 layers) and dbrx-132b (8 of 40) at full
+   width through ``ServeEngine`` with phase 11's load; each config freed
+   before the next, with its init peak, largest allocation, prefill ms,
+   step p50, tokens/s and device-busy share;
 10. the timing of each kernel at the main paths' shapes beside its plain
    version, the nearest single PyTorch call where one exists, the card's
    bound and the time of each kernel's earlier design (from PERF.md: K2
    and K4 on the CUDA cores, K1 and K3 the CUDA-core page walk), and
    rows at phase 11's shapes (K1/K3 at stablelm-12b's decode, K2 at hd
-   160 beside SDPA, K1 at nemotron-4-15b's g 6); then the
+   160 beside SDPA, K1 at nemotron-4-15b's g 6) and phase 12's (K2 at
+   hd 112 beside SDPA, K1 at qwen3-moe-235b-a22b's g 16 decode); then the
    ``{"kernels": [...]}`` line (K1-K4; launches summed over the main
-   paths and phase 11), the card line and the final ``{"ok": true, ...}``
-   line.
+   paths and phases 11 and 12), the card line and the final
+   ``{"ok": true, ...}`` line.
 
 Every path's kernel launch counters are zeroed just before it runs and
 read just after; a kernel of the path that never launched fails the run.
@@ -439,6 +459,16 @@ def phase_kernels(gen) -> None:
                  for dtype, quant in ((torch.float32, False),
                                       (torch.bfloat16, False),
                                       (torch.bfloat16, True))]
+    # qwen3-moe-235b-a22b's head (g 16, hd 128: 16 query rows per kv head
+    # at decode, 64 at a verify of 4): decode, verify and a 255-token suffix
+    # prefill, f32, bf16 and int8 pools, pages 16 and 4
+    k1_cases += [(page, 128, 16, t, dtype, quant, lengths)
+                 for page, lengths in ((16, [0, 700, 333]),
+                                       (4, [0, 701, 4, 37]))
+                 for t in (1, 4, 255)
+                 for dtype, quant in ((torch.float32, False),
+                                      (torch.bfloat16, False),
+                                      (torch.bfloat16, True))]
     for page, hd, g, t, dtype, quant, lengths in k1_cases:
         case = paged_case(gen, b=len(lengths), t=t, kv=2, g=g, hd=hd,
                           page=page, lengths=lengths, dtype=dtype,
@@ -446,15 +476,18 @@ def phase_kernels(gen) -> None:
         out = paged_chunk_attention(**case)
         torch.cuda.synchronize()
         c = compare(out, paged_chunk_attention_ref(**case))
-        log(f"K1 paged_chunk_attention page={page} hd={hd} t={t} "
+        log(f"K1 paged_chunk_attention page={page} hd={hd} g={g} t={t} "
             f"{str(dtype)[6:]}{' int8-pool' if quant else ''} "
             f"cow+zero-length {tol_text(c, dtype)}")
         if not c["ok"]:
             fail("paged_chunk_attention disagrees with its plain version")
     # qwen2-1.5b's prefill (h 12, kv 2, hd 128), stablelm-12b's (h 32, kv
-    # 8, hd 160) and musicgen-medium's MHA (h 24 = kv, hd 64, g 1)
+    # 8, hd 160), musicgen-medium's MHA (h 24 = kv, hd 64, g 1), zamba2-7b's
+    # shared block (h 32 = kv, hd 112: staged as 128), qwen3-moe-235b-a22b's
+    # (h 64, kv 4: g 16) and dbrx-132b's (h 48, kv 8)
     for s in (1023, 2048):
-        for h, kv, hd in ((12, 2, 128), (32, 8, 160), (24, 24, 64)):
+        for h, kv, hd in ((12, 2, 128), (32, 8, 160), (24, 24, 64),
+                          (32, 32, 112), (64, 4, 128), (48, 8, 128)):
             for dtype in (torch.bfloat16, torch.float32):
                 q, k, v = flash_case(gen, s=s, h=h, kv=kv, hd=hd,
                                      dtype=dtype)
@@ -698,21 +731,20 @@ def phase_dense(seed: int = 0) -> tuple:
     return fused, legacy
 
 
-#: the decode cache's shape as a pytree (leaves are placeholders)
-SSM_CACHE = {"conv": 0, "ssm": 0}
-
-
 def ssm_cycle(model, params, prompts, *, n_branches: int, steps: int,
-              device: str, timed: bool = False) -> dict:
-    """The JAX package's SSM serving path (DESIGN §6), which has no
-    engine: each prompt is prefilled (through the SSD scan) and its cache
-    snapshotted into ROOT of its own BranchStore; ROOT forks n_branches
-    whose first tokens are the prefill's best n; every step decodes all
-    branches of all requests as one batch (their [L, 1, ...] states
-    stacked on the batch dim) and writes each slice back to its branch as
-    a tensor of its own; then per request the branch with the highest mean
-    log-probability commits, its siblings must read as stale, and all are
-    reaped."""
+              device: str, timed: bool = False,
+              max_len: int | None = None) -> dict:
+    """The JAX package's SSM and hybrid serving path (DESIGN §6), which has
+    no engine: each prompt is prefilled (through the SSD scan; the hybrid's
+    shared block through flash attention, into a ``max_len`` KV cache) and
+    its cache snapshotted into ROOT of its own BranchStore; ROOT forks
+    n_branches whose first tokens are the prefill's best n; every step
+    decodes all branches of all requests as one batch (their [L, 1, ...]
+    leaves concatenated on the batch dim into new tensors, which the
+    hybrid's step writes its K/V rows into) and writes each slice back to
+    its branch as a tensor of its own; then per request the branch with
+    the highest mean log-probability commits, its siblings must read as
+    stale, and all are reaped."""
     from repro_torch.core import BranchStore, StaleBranchError
 
     cuda = device == "cuda"
@@ -722,7 +754,8 @@ def ssm_cycle(model, params, prompts, *, n_branches: int, steps: int,
         sync()
         t0 = time.perf_counter()
         logits, cache = model.prefill(params,
-                                      torch.tensor([p], device=device))
+                                      torch.tensor([p], device=device),
+                                      max_len=max_len)
         sync()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
         store = BranchStore()
@@ -730,6 +763,7 @@ def ssm_cycle(model, params, prompts, *, n_branches: int, steps: int,
         stores.append(store)
         first.append(torch.log_softmax(logits[0, -1].float(), dim=-1)
                      .topk(n_branches))
+        template = dict.fromkeys(cache, 0)   # the cache's leaves, by name
         del logits, cache
     sync()
     mem_before = torch.cuda.memory_allocated() if cuda else 0
@@ -745,10 +779,12 @@ def ssm_cycle(model, params, prompts, *, n_branches: int, steps: int,
     pos = [len(prompts[r]) for r, _, _ in branches]
 
     def step() -> None:
-        caches = [store.restore_pytree(kid, SSM_CACHE)
+        if max_len is not None and max(pos) >= max_len:
+            fail(f"position {max(pos)} past the {max_len}-position cache")
+        caches = [store.restore_pytree(kid, template)
                   for _, store, kid in branches]
         batch = {n: torch.cat([c[n] for c in caches], dim=1)
-                 for n in SSM_CACHE}
+                 for n in template}
         del caches
         logits, new = model.decode_step(
             params, batch, torch.tensor([[t[-1]] for t in toks],
@@ -792,7 +828,7 @@ def ssm_cycle(model, params, prompts, *, n_branches: int, steps: int,
     return {
         "prefill_ms": prefill_ms, "step_ms": step_ms, "profile": profile,
         "tokens": toks, "winners": winners,
-        "states": [store.restore_pytree(store.ROOT, SSM_CACHE)
+        "states": [store.restore_pytree(store.ROOT, template)
                    for store in stores],
         "mem_before": mem_before,
         "mem_after": torch.cuda.memory_allocated() if cuda else 0,
@@ -1073,7 +1109,7 @@ def phase_parity() -> None:
     same = runs["cuda"]["tokens"] == runs["cpu"]["tokens"]
     errs = {n: (runs["cuda"]["states"][0][n].cpu()
                 - runs["cpu"]["states"][0][n]).abs().max().item()
-            for n in SSM_CACHE}
+            for n in ("conv", "ssm")}
     log(f"mamba2-2.7b widths, 4 layers, 4 branches x 4 steps: tokens "
         f"identical={same}, winner {runs['cuda']['winners']} vs "
         f"{runs['cpu']['winners']}, committed state max |cuda - cpu| "
@@ -1082,6 +1118,8 @@ def phase_parity() -> None:
         fail(f"card {runs['cuda']['tokens']} != cpu {runs['cpu']['tokens']}")
     if max(errs.values()) > 1e-4:
         fail("the committed SSM state differs between card and CPU")
+    hybrid_parity()
+    moe_parity()
 
     cfg = dataclasses.replace(get_config("paper-agentic"), dtype="float32")
     model = Model(cfg)
@@ -1111,6 +1149,100 @@ def phase_parity() -> None:
                               "committed": True, "commits": 1,
                               "drained": True}:
             fail(f"front door /v1/explore on {dev}: {run['explore']}")
+
+
+def hybrid_parity() -> None:
+    """zamba2-7b's widths at 7 layers (one shared-block application, then
+    a one-layer tail), float32: the branching cycle on the card (K4, K2 at
+    hd 112) and on the CPU from one set of weights; identical tokens and
+    winner, the committed state (conv, ssm and the shared block's K/V)
+    within 1e-4 + 1e-4 |cpu|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"), num_layers=7,
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 200)
+    runs = {dev: ssm_cycle(model, _to(params, dev), [prompt.tolist()],
+                           n_branches=4, steps=4, device=dev, max_len=208)
+            for dev in ("cpu", "cuda")}
+    same = runs["cuda"]["tokens"] == runs["cpu"]["tokens"]
+    cpu, card = runs["cpu"]["states"][0], runs["cuda"]["states"][0]
+    errs = {n: (card[n].cpu() - cpu[n]).abs().max().item() for n in cpu}
+    close = all(torch.allclose(card[n].cpu(), cpu[n], atol=1e-4, rtol=1e-4)
+                for n in cpu)
+    log(f"zamba2-7b widths, 7 layers (one shared application, a one-layer "
+        f"tail), 4 branches x 4 steps: tokens identical={same}, winner "
+        f"{runs['cuda']['winners']} vs {runs['cpu']['winners']}, committed "
+        f"state max |cuda - cpu| {errs} (tol 1e-4 + 1e-4 |cpu|)")
+    if not same or runs["cuda"]["winners"] != runs["cpu"]["winners"]:
+        fail(f"hybrid: card {runs['cuda']['tokens']} != cpu "
+             f"{runs['cpu']['tokens']}")
+    if not close:
+        fail("the committed hybrid state differs between card and CPU")
+    del params, runs
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def routed_experts():
+    """Record the expert ids the MoE router picks (``[n, K]`` per call)."""
+    from repro_torch.models import moe
+
+    real, ids = moe.route, []
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        ids.append(out[2].tolist())
+        return out
+    moe.route = recording
+    try:
+        yield ids
+    finally:
+        moe.route = real
+
+
+def moe_parity() -> None:
+    """qwen3-moe-235b-a22b's and dbrx-132b's widths at 2 layers, float32,
+    through the engine: the card's fused and ``"ref"`` paths against the
+    CPU's fused one, from one set of weights; identical greedy tokens and
+    identical expert ids at every routing call (capacity drops included)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.runtime import ServeEngine
+
+    for name in ("qwen3-moe-235b-a22b", "dbrx-132b"):
+        cfg = dataclasses.replace(get_config(name), num_layers=2,
+                                  dtype="float32")
+        model = Model(cfg)
+        params = {"cuda": model.init(
+            torch.Generator(device="cuda").manual_seed(0))}
+        params["cpu"] = _to(params["cuda"], "cpu")
+        tokens, experts = {}, {}
+        for dev, impl in (("cpu", "auto"), ("cuda", "auto"),
+                          ("cuda", "ref")):
+            with routed_experts() as ids:
+                eng = ServeEngine(model, params[dev], num_pages=128,
+                                  page_size=4, max_pages_per_seq=16,
+                                  attn_impl=impl, device=dev)
+                tokens[dev, impl] = exercise(eng)
+            experts[dev, impl] = ids
+            del eng
+        for key in (("cuda", "auto"), ("cuda", "ref")):
+            same = tokens[key] == tokens["cpu", "auto"]
+            routed = experts[key] == experts["cpu", "auto"]
+            log(f"{name} widths, 2 layers, {key[0]} attn_impl={key[1]!r} vs "
+                f"cpu fused: greedy tokens identical={same} "
+                f"({len(tokens[key])} tokens), expert ids identical="
+                f"{routed} ({len(experts[key])} routing calls)")
+            if not same or not routed:
+                fail(f"{name} {key}: tokens {tokens[key]} vs cpu "
+                     f"{tokens['cpu', 'auto']}, expert ids identical "
+                     f"{routed}")
+        del params
+        torch.cuda.empty_cache()
 
 
 def session_parity_run(model, params, device: str) -> tuple:
@@ -2088,6 +2220,125 @@ def phase_families(seed: int = 0) -> dict:
     return out
 
 
+#: phase 12: zamba2-7b's prompts (each its own BranchStore, forked 4 ways:
+#: b = 16), its cache length (the longest prompt and 32 steps) and the
+#: MoE configs' depths (full width; the full depths do not fit one card:
+#: 94 layers of qwen3-moe-235b-a22b are 470 GB in bf16, 40 of dbrx-132b 263 GB)
+HYBRID_PROMPTS = (512, 1024, 1536, 2048)
+HYBRID_MAX_LEN = 2080
+MOE_LAYERS = {"qwen3-moe-235b-a22b": 12, "dbrx-132b": 8}
+
+
+def phase_hybrid_moe(seed: int = 0) -> dict:
+    """Phase 12: zamba2-7b at full width and depth through Model and
+    BranchStore, then the two MoE configs at full width and cut depth
+    through ServeEngine, bf16, one config at a time, each freed before the
+    next."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    log("== phase 12: zamba2-7b (full width and depth), qwen3-moe-235b-a22b "
+        f"({MOE_LAYERS['qwen3-moe-235b-a22b']} layers) and dbrx-132b "
+        f"({MOE_LAYERS['dbrx-132b']} layers) at full width, bf16, random "
+        "weights")
+    card = card_line()
+    out = {}
+
+    def init(cfg):
+        model = Model(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        return model, params, {
+            "params_b": round(sum(p.numel() for p in _leaves(params)) / 1e9,
+                              3),
+            "weights_gb": round(sum(p.nbytes for p in _leaves(params)) / 1e9,
+                                2),
+            "init_s": round(time.perf_counter() - t0, 1),
+            "init_peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2)}
+
+    # --- zamba2-7b: K4 and K2 (hd 112) in prefill, the branching cycle ----
+    cfg = get_config("zamba2-7b")
+    model, params, res = init(cfg)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in HYBRID_PROMPTS]
+    zero_launches()
+    with counted_calls() as calls:
+        # 29 timed steps and 3 under the profiler: 32 positions past the
+        # longest prompt
+        run = ssm_cycle(model, params, prompts, n_branches=4, steps=29,
+                        device="cuda", timed=True, max_len=HYBRID_MAX_LEN)
+    launches = launch_counts()
+    n_apps = cfg.num_layers // cfg.attn_every
+    log(f"zamba2-7b launches on the path: {launches}; flash_attention "
+        f"calls {calls['flash_attention']}")
+    if (launches["ssd_scan"] != cfg.num_layers * len(prompts)
+            or calls["flash_attention"] != n_apps * len(prompts)):
+        fail(f"expected {cfg.num_layers} ssd_scan and {n_apps} "
+             f"flash_attention launches per prefill: {launches}, {calls}")
+    launches_match_calls(launches, {"flash_attention":
+                                    calls["flash_attention"]})
+    drift = abs(run["mem_after"] - run["mem_before"]) / run["mem_before"]
+    log(f"zamba2-7b device memory before the fork "
+        f"{run['mem_before'] / 1e9:.3f} GB, after commit and reap "
+        f"{run['mem_after'] / 1e9:.3f} GB ({drift:.2%} apart)")
+    if drift > 0.05:
+        fail("the reaped hybrid branches' states were not released")
+    for toks in run["tokens"]:
+        if len(toks) != 33 or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"bad hybrid branch tokens {toks}")
+    for state in run["states"]:
+        if not all(torch.isfinite(v).all() for v in state.values()):
+            fail("the committed hybrid state is not finite")
+    p50 = statistics.median(run["step_ms"])
+    prof = run["profile"]
+    busy = (None if prof.get("idle_share") is None
+            else round(1 - prof["idle_share"], 3))
+    res["hybrid"] = {
+        "prefill_ms": [round(x, 3) for x in run["prefill_ms"]],
+        "decode_step_ms_p50": round(p50, 3),
+        "decode_tokens_per_s": round(16 / p50 * 1e3, 1),
+        "device_busy_share": busy, "launches": launches,
+        "prefill_lengths": list(HYBRID_PROMPTS)}
+    res["max_allocated_gb"] = round(torch.cuda.max_memory_allocated() / 1e9,
+                                    2)
+    log(f"zamba2-7b prefill ms per request (prompt {list(HYBRID_PROMPTS)}): "
+        f"{res['hybrid']['prefill_ms']} ({card})")
+    log(f"zamba2-7b decode step ms p50 {p50:.3f} (b=16: 4 requests x 4 "
+        f"branches, max_len {HYBRID_MAX_LEN}), "
+        f"{res['hybrid']['decode_tokens_per_s']} tokens/s, device busy "
+        f"share {busy} ({card})")
+    log(f"zamba2-7b: {res['params_b']} B params ({res['weights_gb']} GB), "
+        f"init {res['init_s']} s, init peak {res['init_peak_gb']} GB, max "
+        f"allocated {res['max_allocated_gb']} GB")
+    out["zamba2-7b"] = res
+    del params, run
+    torch.cuda.empty_cache()
+
+    # --- the MoE configs through ServeEngine (phase 11's load) ------------
+    for name, layers in MOE_LAYERS.items():
+        cfg = dataclasses.replace(get_config(name), num_layers=layers)
+        model, params, res = init(cfg)
+        res["layers"] = layers
+        res["fused"] = serve_dense(model, params, attn_impl="auto",
+                                   steps=16, lens=FAMILY_PROMPTS, seed=seed)
+        res["ref"] = serve_dense(model, params, attn_impl="ref", steps=4,
+                                 lens=FAMILY_PROMPTS, seed=seed)
+        res["max_allocated_gb"] = round(
+            torch.cuda.max_memory_allocated() / 1e9, 2)
+        log(f"{name} ({layers} of {get_config(name).num_layers} layers): "
+            f"{res['params_b']} B params ({res['weights_gb']} GB), init "
+            f"{res['init_s']} s, init peak {res['init_peak_gb']} GB, max "
+            f"allocated {res['max_allocated_gb']} GB")
+        out[name] = res
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def forced_splits(n: int):
     """Split K1's page walk into n ranges, one block each (the wrapper
@@ -2106,10 +2357,11 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
                  explore: dict, door: dict, families: dict) -> list:
     """Kernel rows: K1 and K2 at the fused dense path's shapes, K3 at path
     B's, K4 at path A's; K1's and K2's launches are the fused dense
-    path's, the public API phase's, the front door's and phase 11's (K3's
-    path B's and phase 11's).  Then the families' rows: K1/K3 at
-    stablelm-12b's decode (hd 160), K2 at hd 160 with SDPA beside it, K1
-    at nemotron-4-15b's g 6."""
+    path's, the public API phase's, the front door's and phases 11 and
+    12's (K3's path B's and phases 11 and 12's, K4's path A's and
+    zamba2-7b's).  Then the families' rows: K1/K3 at stablelm-12b's decode
+    (hd 160), K2 at hd 160 and hd 112 with SDPA beside it, K1 at
+    nemotron-4-15b's g 6 and qwen3-moe-235b-a22b's g 16."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2279,7 +2531,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:92",
-        "launches": ssm["launches"]["ssd_scan"],
+        "launches": ssm["launches"]["ssd_scan"]
+        + family_launches(families, "ssd_scan"),
         "max_abs_err": d["max_abs_err"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
@@ -2289,17 +2542,20 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
 
 
 def family_launches(families: dict, name: str) -> int:
-    """One kernel's launches over phase 11's runs."""
+    """One kernel's launches over phase 11's and phase 12's runs."""
     return sum(res[key]["launches"][name] for res in families.values()
-               for key in ("fused", "ref", "image", "audio") if key in res)
+               for key in ("fused", "ref", "image", "audio", "hybrid")
+               if key in res)
 
 
 def family_timing(gen, timer, families: dict) -> None:
-    """Phase 10's rows at phase 11's shapes (bf16, page 16): K1 at
-    stablelm-12b's fused decode (b=16, kv 8, g 4, hd 160, the step's
-    lengths) and at nemotron-4-15b's (g 6, hd 128), K3 at stablelm's path
-    B decode, K2 at hd 160 (h 32, kv 8, s 1023) beside SDPA.  Each kernel
-    is held against its plain version first."""
+    """Phase 10's rows at phase 11's and 12's shapes (bf16, page 16): K1
+    at stablelm-12b's fused decode (b=16, kv 8, g 4, hd 160, the step's
+    lengths), at nemotron-4-15b's (g 6, hd 128) and at
+    qwen3-moe-235b-a22b's (kv 4, g 16), K3 at stablelm's path B decode, K2
+    at hd 160 (h 32, kv 8, s 1023) and at zamba2-7b's hd 112 (h 32 = kv,
+    s 1023) beside SDPA.  Each kernel is held against its plain version
+    first."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2311,13 +2567,16 @@ def family_timing(gen, timer, families: dict) -> None:
 
     bf16 = torch.bfloat16
     out = {}
-    for label, name, g, hd, path in (
-            ("K1 stablelm-12b decode", "stablelm-12b", 4, 160, "fused"),
-            ("K1 nemotron-4-15b decode", "nemotron-4-15b", 6, 128, "fused"),
-            ("K3 stablelm-12b decode", "stablelm-12b", 4, 160, "ref")):
+    for label, name, kv, g, hd, path in (
+            ("K1 stablelm-12b decode", "stablelm-12b", 8, 4, 160, "fused"),
+            ("K1 nemotron-4-15b decode", "nemotron-4-15b", 8, 6, 128,
+             "fused"),
+            ("K3 stablelm-12b decode", "stablelm-12b", 8, 4, 160, "ref"),
+            ("K1 qwen3-moe-235b-a22b decode", "qwen3-moe-235b-a22b", 4, 16,
+             128, "fused")):
         res = families[name][path]
         lengths = res["decode_lengths"]
-        case = paged_case(gen, b=len(lengths), t=1, kv=8, g=g, hd=hd,
+        case = paged_case(gen, b=len(lengths), t=1, kv=kv, g=g, hd=hd,
                           page=16, lengths=lengths, dtype=bf16)
         if path == "ref":
             case = cached_case(case)
@@ -2338,30 +2597,31 @@ def family_timing(gen, timer, families: dict) -> None:
         out[label] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                           launches=res["launches"][kernel],
                           max_abs_err=c["max_abs_err"])
-        log(f"{label} b={len(lengths)} kv=8 g={g} hd={hd} (lengths "
+        log(f"{label} b={len(lengths)} kv={kv} g={g} hd={hd} (lengths "
             f"{min(lengths)}-{max(lengths)}): kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
-            f"{res['launches'][kernel]} launches in phase 11's {path} run")
-    q, k, v = flash_case(gen, s=1023, h=32, kv=8, hd=160)
-    c = compare(flash_attention(q, k, v), flash_attention_ref(q, k, v))
-    if not c["ok"]:
-        fail(f"K2 hd 160: flash_attention disagrees with its plain version "
-             f"({tol_text(c, bf16)})")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = timer(lambda: flash_attention(q, k, v))
-    plain = timer(lambda: flash_attention_ref(q, k, v), 5)
-    lib = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    bnd, by = bound_ms(*flash_cost(q, k), bf16)
-    launches = families["stablelm-12b"]["fused"]["launches"][
-        "flash_attention"]
-    out["K2 hd 160 s=1023"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                   bound_ms=bnd, bound_by=by,
-                                   launches=launches,
-                                   max_abs_err=c["max_abs_err"])
-    log(f"K2 h=32 kv=8 hd=160 s=1023: kernel {ms:.4f} ms, sdpa {lib:.4f} "
-        f"ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), {launches} "
-        "launches in stablelm-12b's fused run")
+            f"{res['launches'][kernel]} launches in {name}'s {path} run")
+    for label, name, kv, hd, key in (
+            ("K2 hd 160 s=1023", "stablelm-12b", 8, 160, "fused"),
+            ("K2 hd 112 s=1023", "zamba2-7b", 32, 112, "hybrid")):
+        q, k, v = flash_case(gen, s=1023, h=32, kv=kv, hd=hd)
+        c = compare(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+        if not c["ok"]:
+            fail(f"{label}: flash_attention disagrees with its plain "
+                 f"version ({tol_text(c, bf16)})")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = timer(lambda: flash_attention(q, k, v))
+        plain = timer(lambda: flash_attention_ref(q, k, v), 5)
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        bnd, by = bound_ms(*flash_cost(q, k), bf16)
+        launches = families[name][key]["launches"]["flash_attention"]
+        out[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=bnd, bound_by=by, launches=launches,
+                          max_abs_err=c["max_abs_err"])
+        log(f"K2 h=32 kv={kv} hd={hd} s=1023: kernel {ms:.4f} ms, sdpa "
+            f"{lib:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
+            f"{launches} launches in {name}'s {key} run")
     log("family kernel rows: " + json.dumps(out))
 
 
@@ -2383,6 +2643,11 @@ def main() -> None:
         for kernel, regs, spill in ptxas_report(text):
             log(f"  {regs:3d} registers, {spill:3d} bytes spilled: "
                 f"{kernel[:100]}")
+    flash_log = _build.BUILD_LOGS.get("flash_attention")
+    if flash_log is not None and not any(
+            "flash_attention_tc_kernelILi112E" in kernel
+            for kernel, _, _ in ptxas_report(flash_log)):
+        fail("flash_attention was built without its hd 112 wgmma kernel")
     for name in sorted(_build.SOURCES):
         n = tensor_core_counts(_build.library_path(name))
         log(f"{name}: {n['HGMMA']} HGMMA and {n['HMMA']} HMMA instructions "
@@ -2403,6 +2668,7 @@ def main() -> None:
     device_explore = phase_device_explore()
     fs = phase_branchfs()
     families = phase_families()
+    families.update(phase_hybrid_moe())
     rows = phase_timing(gen, dense, legacy, ssm, explore, door, families)
     log(f"total {time.perf_counter() - t0:.1f} s after the build")
     keys = ("prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",
@@ -2419,7 +2685,7 @@ def main() -> None:
     log("front door phase: " + json.dumps(door))
     log("device explore: " + json.dumps(device_explore))
     log(f"BranchFS ({os.uname().nodename}): " + json.dumps(fs))
-    log("families phase: " + json.dumps(
+    log("families phases (11, 12): " + json.dumps(
         {name: {k: ({kk: r[kk] for kk in ("prefill_ms", "decode_step_ms_p50",
                                            "decode_tokens_per_s",
                                            "device_busy_share", "launches")

@@ -1,4 +1,5 @@
-"""Architecture configs the port serves — copies of the JAX package's.
+"""Architecture configs the port serves — copies of the JAX package's,
+all eleven of them.
 
 Importing this package registers every config; ``get_config(name)`` /
 ``list_archs()`` are the public entry points.
@@ -7,6 +8,7 @@ Importing this package registers every config; ``get_config(name)`` /
 from repro_torch.configs.base import ArchConfig, get_config, list_archs, reduced
 
 # registration side effects — one module per served architecture
+from repro_torch.configs.dbrx_132b import DBRX_132B
 from repro_torch.configs.granite_8b import GRANITE_8B
 from repro_torch.configs.mamba2_2_7b import MAMBA2_2_7B
 from repro_torch.configs.musicgen_medium import MUSICGEN_MEDIUM
@@ -14,8 +16,11 @@ from repro_torch.configs.nemotron_4_15b import NEMOTRON_4_15B
 from repro_torch.configs.paper_agentic import PAPER_AGENTIC
 from repro_torch.configs.pixtral_12b import PIXTRAL_12B
 from repro_torch.configs.qwen2_1_5b import QWEN2_1_5B
+from repro_torch.configs.qwen3_moe_235b_a22b import QWEN3_MOE_235B_A22B
 from repro_torch.configs.stablelm_12b import STABLELM_12B
+from repro_torch.configs.zamba2_7b import ZAMBA2_7B
 
 __all__ = ["ArchConfig", "get_config", "list_archs", "reduced",
-           "GRANITE_8B", "MAMBA2_2_7B", "MUSICGEN_MEDIUM", "NEMOTRON_4_15B",
-           "PAPER_AGENTIC", "PIXTRAL_12B", "QWEN2_1_5B", "STABLELM_12B"]
+           "DBRX_132B", "GRANITE_8B", "MAMBA2_2_7B", "MUSICGEN_MEDIUM",
+           "NEMOTRON_4_15B", "PAPER_AGENTIC", "PIXTRAL_12B", "QWEN2_1_5B",
+           "QWEN3_MOE_235B_A22B", "STABLELM_12B", "ZAMBA2_7B"]

@@ -3,10 +3,11 @@
 Every assigned architecture is a frozen :class:`ArchConfig`; the registry
 maps ``--arch <id>`` to it.  ``reduced()`` produces the tiny same-family
 config used by CPU tests.  The port's copy of the JAX package's
-``repro/configs/base.py``; it registers only the configurations the port
-serves: ``paper-agentic``, ``qwen2-1.5b``, ``granite-8b``,
+``repro/configs/base.py``; the port serves every configuration the JAX
+package registers: ``paper-agentic``, ``qwen2-1.5b``, ``granite-8b``,
 ``nemotron-4-15b`` and ``stablelm-12b`` (dense), ``pixtral-12b`` (VLM stub),
-``musicgen-medium`` (audio, four codebooks) and ``mamba2-2.7b`` (SSM).
+``musicgen-medium`` (audio, four codebooks), ``mamba2-2.7b`` (SSM),
+``zamba2-7b`` (hybrid), ``qwen3-moe-235b-a22b`` and ``dbrx-132b`` (MoE).
 """
 
 from __future__ import annotations

@@ -104,13 +104,15 @@ __device__ __forceinline__ void fold_tile(RowState<HD>& st, const float* q,
   st.m = m_new;
 }
 
-// Write a finished row: out[lane + 32 i] = acc / l.  Every row the kernels
+// Write a finished row: out[lane + 32 i] = acc / l for its first N dims (a
+// row staged padded past N keeps its zero columns).  Every row the kernels
 // finish has attended at least its own key, so l > 0.
-template <int HD, typename T>
+template <int HD, typename T, int N = HD>
 __device__ __forceinline__ void row_store(const RowState<HD>& st, T* out) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < HD / 32; ++i) out[lane + 32 * i] = from_f32<T>(st.acc[i] / st.l);
+  for (int i = 0; i < HD / 32; ++i)
+    if (N == HD || lane + 32 * i < N) out[lane + 32 * i] = from_f32<T>(st.acc[i] / st.l);
 }
 
 }  // namespace repro_torch

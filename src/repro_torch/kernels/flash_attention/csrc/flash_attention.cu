@@ -18,7 +18,11 @@
 // * S = Q K^T: one wgmma m64n64k16 per 16 of hd, Q and K from shared
 //   memory as TMA wrote them (128-byte swizzle; 64-byte, in 32-column
 //   panels, for hd 32 and 160); the bf16 products are exact in the f32
-//   accumulator.
+//   accumulator.  hd 112 (zamba2-7b's shared block) is staged as hd 128:
+//   its second 64-column box reaches past the tensor's last column, and
+//   TMA fills those 16 columns with zeros, so Q K^T adds zero products,
+//   P V writes zero columns, and only the 112 real columns are stored
+//   (14% more tensor-core work than 112 needs, on the proven hd 128 path).
 // * The online softmax runs in base 2 on the accumulator's fragment (a
 //   thread holds two rows; row max and sum over the 4 lanes of a row).
 // * O += P V: P, f32 in registers, is split into kPTerms bf16 terms (hi =
@@ -41,7 +45,9 @@
 //
 // float32 (flash_attention_kernel): the CUDA cores, f32 throughout.  A lane
 // scores one key of a 32-key tile staged in shared memory and a warp owns
-// whole query rows; tiles above the diagonal are skipped.
+// whole query rows; tiles above the diagonal are skipped.  A head dim that
+// is not a whole number of 32 columns (112) is staged padded with zeros to
+// the next one (128), and only its real columns are stored.
 
 #include "attention_tile.cuh"
 #include "hopper.cuh"
@@ -52,9 +58,14 @@ constexpr int FA_WARPS = 8;
 constexpr int FA_ROWS_PER_WARP = 8;
 constexpr int FA_ROWS = FA_WARPS * FA_ROWS_PER_WARP;  // 64-row query tile
 
+// the head dim as staged: whole 32-column groups, one column per lane
+template <int HD>
+__host__ __device__ constexpr int fa_staged() { return (HD + 31) / 32 * 32; }
+
 template <int HD>
 constexpr size_t fa_smem_bytes() {
-  return sizeof(float) * (FA_ROWS * HD + KT * (HD + 4) + KT * HD);
+  constexpr int HP = fa_staged<HD>();
+  return sizeof(float) * (FA_ROWS * HP + KT * (HP + 4) + KT * HP);
 }
 
 // q/out [b, s, h, HD]; k/v [b, s, kv, HD].  grid (q tiles, h, b).
@@ -63,10 +74,11 @@ __global__ void __launch_bounds__(FA_WARPS * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int s, int h, int kv,
                        float scale) {
+  constexpr int HP = fa_staged<HD>();    // staged columns, zero past HD
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                      // [FA_ROWS][HD]
-  float* k_s = q_s + FA_ROWS * HD;        // [KT][HD + 4]
-  float* v_s = k_s + KT * (HD + 4);       // [KT][HD]
+  float* q_s = smem;                      // [FA_ROWS][HP]
+  float* k_s = q_s + FA_ROWS * HP;        // [KT][HP + 4]
+  float* v_s = k_s + KT * (HP + 4);       // [KT][HP]
 
   // heaviest (last) query tiles first: they have the most keys to walk
   const int tile = gridDim.x - 1 - blockIdx.x;
@@ -79,17 +91,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nthreads = FA_WARPS * 32;
 
   constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
-  for (int e = threadIdx.x; e < FA_ROWS * HD / V; e += nthreads) {
-    const int i = e / (HD / V), d0 = (e % (HD / V)) * V, r = row0 + i;
-    if (r < s) {
-      load16(q + (((size_t)b * s + r) * h + head) * HD + d0, q_s + i * HD + d0, 1.f);
+  for (int e = threadIdx.x; e < FA_ROWS * HP / V; e += nthreads) {
+    const int i = e / (HP / V), d0 = (e % (HP / V)) * V, r = row0 + i;
+    if (r < s && d0 < HD) {
+      load16(q + (((size_t)b * s + r) * h + head) * HD + d0, q_s + i * HP + d0, 1.f);
     } else {
 #pragma unroll
-      for (int u = 0; u < V; ++u) q_s[i * HD + d0 + u] = 0.f;
+      for (int u = 0; u < V; ++u) q_s[i * HP + d0 + u] = 0.f;
     }
   }
 
-  RowState<HD> st[FA_ROWS_PER_WARP];
+  RowState<HP> st[FA_ROWS_PER_WARP];
 #pragma unroll
   for (int i = 0; i < FA_ROWS_PER_WARP; ++i) row_init(st[i]);
 
@@ -97,15 +109,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = min(s, row0 + FA_ROWS);
   for (int k0 = 0; k0 < k_end; k0 += KT) {
     __syncthreads();  // q staged / previous tile consumed
-    for (int e = threadIdx.x; e < KT * HD / V; e += nthreads) {
-      const int j = e / (HD / V), d0 = (e % (HD / V)) * V, pos = k0 + j;
-      if (pos < s) {
+    for (int e = threadIdx.x; e < KT * HP / V; e += nthreads) {
+      const int j = e / (HP / V), d0 = (e % (HP / V)) * V, pos = k0 + j;
+      if (pos < s && d0 < HD) {
         const size_t off = (((size_t)b * s + pos) * kv + kvh) * HD + d0;
-        load16(k + off, k_s + j * (HD + 4) + d0, 1.f);
-        load16(v + off, v_s + j * HD + d0, 1.f);
+        load16(k + off, k_s + j * (HP + 4) + d0, 1.f);
+        load16(v + off, v_s + j * HP + d0, 1.f);
       } else {
 #pragma unroll
-        for (int u = 0; u < V; ++u) k_s[j * (HD + 4) + d0 + u] = v_s[j * HD + d0 + u] = 0.f;
+        for (int u = 0; u < V; ++u) k_s[j * (HP + 4) + d0 + u] = v_s[j * HP + d0 + u] = 0.f;
       }
     }
     __syncthreads();
@@ -114,7 +126,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int li = warp * FA_ROWS_PER_WARP + i;
       const int r = row0 + li;
       if (r >= s || k0 > r) continue;  // warp-uniform: past the end or above the diagonal
-      fold_tile<HD>(st[i], q_s + li * HD, k_s, v_s, k0 + lane <= r, scale);
+      fold_tile<HP>(st[i], q_s + li * HP, k_s, v_s, k0 + lane <= r, scale);
     }
   }
 
@@ -122,7 +134,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < FA_ROWS_PER_WARP; ++i) {
     const int r = row0 + warp * FA_ROWS_PER_WARP + i;
     if (r >= s) continue;
-    row_store<HD, T>(st[i], out + (((size_t)b * s + r) * h + head) * HD);
+    row_store<HP, T, HD>(st[i], out + (((size_t)b * s + r) * h + head) * HD);
   }
 }
 
@@ -138,11 +150,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Shape {
+  // the head dim as staged: hd 112 as 128 (TMA zero-fills the last 16)
+  static constexpr int HP = HD == 112 ? 128 : HD;
   // swizzle span, bytes: 128 where hd is whole 64-column panels, else
   // 64 (hd 32: one 32-column panel; hd 160: five)
-  static constexpr int SW = HD % 64 == 0 ? 128 : 64;
+  static constexpr int SW = HP % 64 == 0 ? 128 : 64;
   static constexpr int PE = SW / 2;               // hd columns per panel
-  static constexpr int TILE = ROWS * HD * 2;      // bytes of one bf16 tile
+  static constexpr int TILE = ROWS * HP * 2;      // bytes of one bf16 tile
   // alignment slack, Q, the K/V ring, mbarriers
   static constexpr size_t SMEM = 1024 + (1 + 2 * STAGES) * TILE + 8 * (1 + STAGES);
 };
@@ -157,7 +171,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                           __nv_bfloat16* __restrict__ out, int s, int h, int kv,
                           float scale_log2) {
   using Sh = Shape<HD>;
-  constexpr int SW = Sh::SW, PE = Sh::PE, TILE = Sh::TILE;
+  constexpr int HP = Sh::HP, SW = Sh::SW, PE = Sh::PE, TILE = Sh::TILE;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* q_s = base;
@@ -178,7 +192,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   auto load_kv = [&](int st, int j) {
     mbar_expect_tx(&bars[1 + st], 2 * TILE);
 #pragma unroll
-    for (int p = 0; p < HD / PE; ++p) {
+    for (int p = 0; p < HP / PE; ++p) {
       tma_load_4d(k_s(st) + p * KEYS * SW, &k_map, &bars[1 + st], p * PE, kvh, j * KEYS, b);
       tma_load_4d(v_s(st) + p * KEYS * SW, &v_map, &bars[1 + st], p * PE, kvh, j * KEYS, b);
     }
@@ -192,14 +206,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   if (tid == 0) {
     mbar_expect_tx(&bars[0], TILE);
 #pragma unroll
-    for (int p = 0; p < HD / PE; ++p)
+    for (int p = 0; p < HP / PE; ++p)
       tma_load_4d(q_s + p * ROWS * SW, &q_map, &bars[0], p * PE, head, row0, b);
     for (int j = 0; j < STAGES && j < n_kv; ++j) load_kv(j, j);
   }
 
-  float o[HD / 2];
+  float o[HP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HP / 2; ++i) o[i] = 0.f;
   float m0 = neg_inf(), m1 = neg_inf();  // running max of rows r_lo, r_lo + 8
   float l0 = 0.f, l1 = 0.f;              // this thread's part of their sums
   mbar_wait(&bars[0], 0);
@@ -212,7 +226,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < HP / 16; ++kk)
       wgmma_ss_n64<0, 0>(sc, kmajor_desc<SW>(q_s, kk * 16, ROWS),
                       kmajor_desc<SW>(k_s(st), kk * 16, KEYS));
     wgmma_commit();
@@ -253,7 +267,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     l0 = l0 * a0 + ls0;
     l1 = l1 * a1 + ls1;
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] *= ((i >> 1) & 1) ? a1 : a0;
+    for (int i = 0; i < HP / 2; ++i) o[i] *= ((i >> 1) & 1) ? a1 : a0;
 
     wgmma_fence();
 #pragma unroll
@@ -261,17 +275,17 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       const uint64_t dv = nmajor_desc<SW>(v_s(st), kk * 16, KEYS);
       const uint32_t ah[4] = {p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2], p_hi[4 * kk + 3]};
       const uint32_t al[4] = {p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2], p_lo[4 * kk + 3]};
-      if constexpr (HD == 128) {
+      if constexpr (HP == 128) {
         wgmma_rs_n128<1>(o, ah, dv);
         wgmma_rs_n128<1>(o, al, dv);
-      } else if constexpr (HD == 64) {
+      } else if constexpr (HP == 64) {
         wgmma_rs_n64<1>(o, ah, dv);
         wgmma_rs_n64<1>(o, al, dv);
       } else {
         // 32-column panels (hd 32: one; hd 160: five), one m64n32 product
         // per panel into registers 16 p .. 16 p + 15 of o (columns 32 p ..)
 #pragma unroll
-        for (int p = 0; p < HD / PE; ++p) {
+        for (int p = 0; p < HP / PE; ++p) {
           float(&op)[16] = *reinterpret_cast<float(*)[16]>(o + 16 * p);
           const uint64_t dvp = nmajor_desc<SW>(v_s(st) + p * KEYS * SW, kk * 16, KEYS);
           wgmma_rs_n32<1>(op, ah, dvp);
@@ -293,11 +307,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
 #pragma unroll
-  for (int i = 0; i < HD / 2; i += 2) {
+  for (int i = 0; i < HP / 2; i += 2) {
     const int row = r_lo + 8 * ((i >> 1) & 1);
     const int col = (i / 4) * 8 + (lane & 3) * 2;
     const int r = row0 + row;
-    if (r >= s) continue;
+    if (r >= s || col >= HD) continue;  // past the end, or a padded column
     const float l = ((i >> 1) & 1) ? l1 : l0;
     *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * s + r) * h + head) * HD + col) =
         __floats2bfloat162_rn(o[i] / l, o[i + 1] / l);
@@ -363,6 +377,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   switch (hd) {
     case 32: return dispatch_dtype<32>(bf16, q, k, v, out, b, s, h, kv, scale, st);
     case 64: return dispatch_dtype<64>(bf16, q, k, v, out, b, s, h, kv, scale, st);
+    case 112: return dispatch_dtype<112>(bf16, q, k, v, out, b, s, h, kv, scale, st);
     case 128: return dispatch_dtype<128>(bf16, q, k, v, out, b, s, h, kv, scale, st);
     case 160: return dispatch_dtype<160>(bf16, q, k, v, out, b, s, h, kv, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

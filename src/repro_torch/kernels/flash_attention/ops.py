@@ -18,7 +18,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 NAME = "flash_attention"
 LAUNCHES = {NAME: 0}
-HEAD_DIMS = (32, 64, 128, 160)
+HEAD_DIMS = (32, 64, 112, 128, 160)
 #: bf16 terms each f32 operand of the bf16 kernel's tensor-core products is
 #: split into (P in O += P.V); tests/test_torch_tc_numerics.py chose them
 SPLIT_TERMS = {"P": 2}

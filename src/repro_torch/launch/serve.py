@@ -30,8 +30,11 @@ address is printed on the ``serving on http://...`` line.
 Not ported yet, and refused with a non-zero exit rather than served some
 other way: ``--tp`` (tensor-parallel serving, ROADMAP's multi-GPU item).
 A config the paged engine does not serve (``musicgen-medium``'s four
-codebooks, as the JAX engine fails on them, or ``mamba2-2.7b``) exits 2
-with the engine's refusal.
+codebooks, as the JAX engine fails on them, ``mamba2-2.7b`` or the hybrid
+``zamba2-7b``, which the JAX engine refuses too) exits 2 with the engine's
+refusal.  The MoE configs (``qwen3-moe-235b-a22b``, ``dbrx-132b``) serve
+through the engine like the dense ones; at full depth neither fits one
+80 GB card.
 """
 
 from __future__ import annotations
@@ -49,8 +52,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="paper-agentic",
                     help="config name: paper-agentic, qwen2-1.5b, "
                          "granite-8b, nemotron-4-15b, stablelm-12b, "
-                         "pixtral-12b (text only); musicgen-medium and "
-                         "mamba2-2.7b are refused by the paged engine "
+                         "pixtral-12b (text only), qwen3-moe-235b-a22b, "
+                         "dbrx-132b; musicgen-medium, mamba2-2.7b and "
+                         "zamba2-7b are refused by the paged engine "
                          "(exit 2)")
     ap.add_argument("--branches", type=int, default=3)
     ap.add_argument("--tokens", type=int, default=8)

@@ -1,4 +1,12 @@
-"""Model facade of the port: one object per architecture config."""
+"""Model facade of the port: one object per architecture config.
+
+Every family the JAX package registers: dense, vlm, audio and moe (a
+contiguous KV cache, written in place by ``decode_step``), ssm (the
+recurrent state, stepped out of place) and hybrid (both: the Mamba2 state
+out of place, the shared block's KV in place).  The paged ``ServeEngine``
+serves the dense, vlm (text) and moe families; ssm and hybrid branch
+their caches through ``BranchStore``.
+"""
 
 from __future__ import annotations
 
@@ -38,7 +46,9 @@ class Model:
                     tokens: torch.Tensor, pos: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One token per sequence: in place over a contiguous KV cache,
-        out of place over an SSM cache."""
+        out of place over an SSM cache; a hybrid cache's ``conv``/``ssm``
+        out of place and its ``k``/``v`` in place (batch restored branches
+        by ``torch.cat`` or clone them first)."""
         return D.decode_step(self.cfg, params, cache, tokens, pos)
 
     def init_decode_state(self, batch: int, max_len: int,

@@ -1,9 +1,12 @@
 """Parameters, embedding and output head of the port's families.
 
-Counterparts of ``init_transformer`` (dense, vlm, audio and ssm branches),
-``embed_tokens`` and ``lm_head`` in ``repro/models/transformer.py``.
-Parameters are a plain dict of tensors in the JAX package's layout, layers
-stacked ``[L, ...]``.
+Counterparts of ``init_transformer``, ``embed_tokens`` and ``lm_head`` in
+``repro/models/transformer.py``, for every family the JAX package
+registers: dense, vlm (stub frontend), audio (several codebooks) and moe
+(attention + the MoE FFN), ssm (Mamba2) and hybrid (a Mamba2 backbone and
+ONE weight-shared attention + MLP block, ``shared``, applied every
+``attn_every`` layers on ``concat([h, h0])``).  Parameters are a plain dict
+of tensors in the JAX package's layout, layers stacked ``[L, ...]``.
 """
 
 from __future__ import annotations
@@ -14,21 +17,23 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe
 from repro_torch.models.ssm import init_mamba
 
 Params = Dict[str, Any]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-#: the families with attention + MLP layers the port serves
-ATTN_FAMILIES = ("dense", "vlm", "audio")
+#: the families whose layers are attention + an FFN (the MLP, or the MoE
+#: block of an MoE config)
+ATTN_FAMILIES = ("dense", "vlm", "audio", "moe")
+#: the families whose layers are Mamba2 blocks (the hybrid adds its shared
+#: attention block)
+SSM_FAMILIES = ("ssm", "hybrid")
 MLP_ACTIVATIONS = ("swiglu", "geglu", "sqrelu")
-#: of those, the families the paged ServeEngine serves (the VLM stub's
-#: text path; several codebooks are refused)
-ENGINE_FAMILIES = ("dense", "vlm")
-#: the families still to port -> where ROADMAP queues them
-TO_PORT = {"hybrid": "ROADMAP §1, still to port: the hybrid family",
-           "moe": "ROADMAP §1, still to port: MoE"}
+#: of the attention families, those the paged ServeEngine serves (the VLM
+#: stub's text path; several codebooks are refused)
+ENGINE_FAMILIES = ("dense", "vlm", "moe")
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -36,31 +41,30 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_servable(cfg: ArchConfig) -> None:
-    """The port serves the dense, VLM-stub and audio (multi-codebook)
-    families with any of the three MLPs, and the attention-free SSM
-    (Mamba2) family."""
-    if cfg.family == "ssm" and cfg.ssm_groups == 1:
-        return
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name} (hybrid): the shared-attention hybrid family is "
-            f"not ported yet ({TO_PORT['hybrid']})")
-    if cfg.is_moe or cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name} (moe): the MoE FFN is not ported yet "
-            f"({TO_PORT['moe']})")
-    if (cfg.family not in ATTN_FAMILIES
-            or cfg.mlp_activation not in MLP_ACTIVATIONS):
+    """The port serves every family the JAX package registers: dense,
+    VLM-stub, audio (several codebooks) and MoE with any of the three
+    MLPs; the attention-free SSM (Mamba2) family; and the hybrid (Mamba2
+    layers and a shared attention block every ``attn_every`` of them).
+    The Mamba2 blocks take one B/C group."""
+    if cfg.family in SSM_FAMILIES:
+        ok = cfg.ssm_groups == 1 and (cfg.family == "ssm" or (
+            cfg.attn_every > 0 and cfg.mlp_activation in MLP_ACTIVATIONS))
+    else:
+        ok = (cfg.family in ATTN_FAMILIES
+              and cfg.mlp_activation in MLP_ACTIVATIONS
+              and (cfg.family == "moe") == cfg.is_moe)
+    if not ok:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}, {cfg.mlp_activation}): the port "
             f"serves the {'/'.join(ATTN_FAMILIES)} families with "
-            f"{'/'.join(MLP_ACTIVATIONS)} MLPs, and the SSM family")
+            f"{'/'.join(MLP_ACTIVATIONS)} MLPs (experts only in moe), and "
+            "the SSM and hybrid families with one B/C group")
 
 
 def check_engine_servable(cfg: ArchConfig) -> None:
-    """The paged engine serves the dense family and the VLM stub's text
-    path; several codebooks (audio), the SSM family and whatever
-    :func:`check_servable` refuses are refused."""
+    """The paged engine serves the dense and MoE families and the VLM
+    stub's text path; several codebooks (audio), the SSM and hybrid
+    families and whatever :func:`check_servable` refuses are refused."""
     check_servable(cfg)
     if cfg.num_codebooks > 1:
         raise NotImplementedError(
@@ -71,8 +75,9 @@ def check_engine_servable(cfg: ArchConfig) -> None:
     if cfg.family not in ENGINE_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): the paged engine serves the "
-            f"{'/'.join(ENGINE_FAMILIES)} (text) families; the SSM family "
-            "runs through Model.prefill / decode_step and BranchStore")
+            f"{'/'.join(ENGINE_FAMILIES)} (text) families; the SSM and "
+            "hybrid families run through Model.prefill / decode_step and "
+            "BranchStore (the JAX package's engine refuses them too)")
 
 
 def init_transformer(cfg: ArchConfig, gen: torch.Generator) -> Params:
@@ -87,17 +92,30 @@ def init_transformer(cfg: ArchConfig, gen: torch.Generator) -> Params:
     p: Params = {"embed": L.dense_init(gen, embed_shape, dtype, fan_in=d)}
     if cfg.frontend == "vlm_stub":
         p["frontend_proj"] = L.dense_init(gen, (d, d), dtype)
-    if cfg.family == "ssm":
+    if cfg.family in SSM_FAMILIES:
         def one() -> Params:
             return {"ln": torch.ones((d,), dtype=dtype, device=dev),
                     "mamba": init_mamba(cfg, gen, dtype)}
     else:
         def one() -> Params:
-            return {"ln1": torch.ones((d,), dtype=dtype, device=dev),
-                    "ln2": torch.ones((d,), dtype=dtype, device=dev),
-                    "attn": L.init_attention(cfg, gen, dtype),
-                    "mlp": L.init_mlp(cfg, gen, dtype)}
+            lp = {"ln1": torch.ones((d,), dtype=dtype, device=dev),
+                  "ln2": torch.ones((d,), dtype=dtype, device=dev),
+                  "attn": L.init_attention(cfg, gen, dtype)}
+            if cfg.is_moe:
+                lp["moe"] = init_moe(cfg, gen, dtype)   # router in f32
+            else:
+                lp["mlp"] = L.init_mlp(cfg, gen, dtype)
+            return lp
     p["layers"] = _stacked(n, one)
+    if cfg.family == "hybrid":
+        # ONE attention + MLP block, its weights shared by every application
+        p["shared"] = {
+            "w_concat": L.dense_init(gen, (2 * d, d), dtype),
+            "ln1": torch.ones((d,), dtype=dtype, device=dev),
+            "ln2": torch.ones((d,), dtype=dtype, device=dev),
+            "attn": L.init_attention(cfg, gen, dtype),
+            "mlp": L.init_mlp(cfg, gen, dtype),
+        }
     p["final_norm"] = torch.ones((d,), dtype=dtype, device=dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, (d, cb * cfg.vocab_size), dtype,

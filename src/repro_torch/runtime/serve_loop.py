@@ -20,9 +20,11 @@ The PyTorch counterpart of ``repro/runtime/serve_loop.py``, single device:
 * ``commit`` resolves first-commit-wins; ``checkpoint``/``restore`` move a
   branch's pages to the host tier and back.
 * ``kv_dtype="int8"`` stores int8 pools with per-page/per-kv-head scales.
-* It serves the dense family and the VLM stub's text path (no image:
-  ``add_request`` takes tokens only, as in the JAX engine), with any of the
-  three MLPs; several codebooks (audio) are refused at construction.
+* It serves the dense and MoE families and the VLM stub's text path (no
+  image: ``add_request`` takes tokens only, as in the JAX engine), with any
+  of the three MLPs; an MoE layer routes every row of a pass together, as
+  the JAX engine's ``_ffn`` does.  Several codebooks (audio), the SSM and
+  the hybrid family are refused at construction.
 
 Attention is :func:`repro_torch.kernels.paged_attention.
 paged_chunk_attention` (fused decode, verify, suffix prefill — on both
@@ -55,6 +57,7 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
+from repro_torch.models.moe import ffn
 from repro_torch.models.transformer import (
     check_engine_servable,
     embed_tokens,
@@ -324,9 +327,12 @@ class ServeEngine:
         return h + L.attn_out(a.reshape(b, t, -1, cfg.head_dim),
                               lp["attn"]["wo"]), k, v
 
-    def _mlp(self, lp: Any, h: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, lp: Any, h: torch.Tensor) -> torch.Tensor:
+        """The layer's post-attention FFN on the ln2-normed hidden, added
+        to it: the MLP, or the MoE block routing every row of the pass
+        together (the batch is never padded: capacity counts its rows)."""
         x = L.rms_norm(h, lp["ln2"], self.cfg.norm_eps)
-        return h + L.mlp_block(self.cfg, lp["mlp"], x)
+        return h + ffn(self.cfg, lp, x)
 
     def _identity_map(self) -> torch.Tensor:
         return torch.arange(self.kv.num_pages, dtype=torch.int32,
@@ -362,7 +368,7 @@ class ServeEngine:
             else:
                 self.k_pages[i][slot_pages, slot_offsets] = k[:, 0]
                 self.v_pages[i][slot_pages, slot_offsets] = v[:, 0]
-            h = self._mlp(lp, h)
+            h = self._ffn(lp, h)
         h = L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)
         return lm_head(cfg, self.params, h)[:, 0]
 
@@ -388,7 +394,7 @@ class ServeEngine:
                                 lengths + 1)
             h = h + L.attn_out(a.reshape(b, 1, -1, cfg.head_dim),
                                lp["attn"]["wo"])
-            h = self._mlp(lp, h)
+            h = self._ffn(lp, h)
         h = L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)
         return lm_head(cfg, self.params, h)[:, 0]
 
@@ -413,7 +419,7 @@ class ServeEngine:
                 vs.append(v)
                 if i == cfg.num_layers - 1:
                     break       # the last layer's MLP feeds only logits
-            h = self._mlp(lp, h)
+            h = self._ffn(lp, h)
         if want_kv:
             return torch.stack(ks), torch.stack(vs)
         h = L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)

@@ -82,7 +82,8 @@ def paged_case(gen, b, t, kv, g, hd, page, lengths, dtype, quant):
                                          (torch.bfloat16, True)],
                          ids=["f32", "bf16", "int8"])
 @pytest.mark.parametrize("hd,g,t", [(32, 2, 1), (64, 1, 9), (128, 6, 40),
-                                    (160, 4, 1), (160, 4, 9)], ids=str)
+                                    (160, 4, 1), (160, 4, 9), (128, 16, 1),
+                                    (128, 16, 4)], ids=str)
 def test_paged_chunk_attention_kernel(gen, hd, g, t, dtype, quant):
     case = paged_case(gen, 3, t, 2, g, hd, 16, [0, 70, 33], dtype, quant)
     # bf16: one cluster launch; f32: the walk, and the combine when split
@@ -100,8 +101,8 @@ def test_paged_chunk_attention_kernel(gen, hd, g, t, dtype, quant):
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("t", [1, 4, 255])
-@pytest.mark.parametrize("hd,g", [(32, 2), (64, 1), (128, 6), (160, 4)],
-                         ids=str)
+@pytest.mark.parametrize("hd,g", [(32, 2), (64, 1), (128, 6), (160, 4),
+                                  (128, 16)], ids=str)
 def test_paged_chunk_attention_tensor_cores(gen, hd, g, t, quant):
     # the bf16 walk (one-warp blocks up to 32 rows, 64-row tiles above),
     # bf16 and int8 pools, a CoW redirect and a zero-length row: one launch
@@ -208,7 +209,8 @@ def test_paged_walk_refuses_a_split_above_the_cluster_limit(gen,
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("s,h,kv,hd", [(1, 4, 2, 32), (77, 6, 2, 64),
                                        (300, 12, 2, 128), (77, 4, 4, 64),
-                                       (300, 8, 2, 160)], ids=str)
+                                       (300, 8, 2, 160), (77, 4, 4, 112),
+                                       (300, 6, 2, 112)], ids=str)
 def test_flash_attention_kernel(gen, s, h, kv, hd, dtype):
     q = torch.randn(2, s, h, hd, generator=gen, device="cuda").to(dtype)
     k = torch.randn(2, s, kv, hd, generator=gen, device="cuda").to(dtype)
@@ -237,11 +239,15 @@ def test_flash_attention_tensor_cores_at_the_prefill_shape(gen, s):
 
 
 @pytest.mark.parametrize("s,h,kv,hd", [(1023, 32, 8, 160), (2048, 32, 8, 160),
-                                       (1025, 24, 24, 64)], ids=str)
+                                       (1025, 24, 24, 64), (1023, 32, 32, 112),
+                                       (2048, 32, 32, 112), (1023, 64, 4, 128),
+                                       (1023, 48, 8, 128)], ids=str)
 def test_flash_attention_tensor_cores_at_the_families_shapes(gen, s, h, kv,
                                                              hd):
     # stablelm-12b's prefill (hd 160: five 32-column panels, 64-byte
-    # swizzle) and musicgen-medium's (MHA, g 1), bf16 on wgmma
+    # swizzle), musicgen-medium's (MHA, g 1), zamba2-7b's shared block (hd
+    # 112, staged as 128 with zero columns), qwen3-moe-235b-a22b's (g 16)
+    # and dbrx-132b's (g 6), bf16 on wgmma
     q = torch.randn(1, s, h, hd, generator=gen, device="cuda").bfloat16()
     k = torch.randn(1, s, kv, hd, generator=gen, device="cuda").bfloat16()
     v = torch.randn(1, s, kv, hd, generator=gen, device="cuda").bfloat16()
@@ -494,6 +500,68 @@ def test_ssm_branching_on_the_card_matches_the_cpu(gen):
     for n in ("conv", "ssm"):
         torch.testing.assert_close(out["cuda"][1][n].cpu(), out["cpu"][1][n],
                                    atol=1e-4, rtol=1e-4)
+
+
+def test_hybrid_branching_on_the_card_matches_the_cpu(gen):
+    """zamba2-7b's family at a tail-bearing depth: prefill through K4 and
+    K2 at hd 112, a 3-way fork, batched decode (the shared block's K/V
+    written into the concatenated batch) and a commit, card against CPU."""
+    cfg = dataclasses.replace(reduced(get_config("zamba2-7b"),
+                                      d_model=448, layers=5),
+                              dtype="float32", num_heads=4, num_kv_heads=4,
+                              head_dim=112, ssm_state=64, ssm_head_dim=64,
+                              attn_every=2)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 150))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        logits, cache = model.prefill(p, torch.from_numpy(prompt).to(dev),
+                                      max_len=160)
+        store = BranchStore()
+        store.snapshot_pytree(store.ROOT, cache)
+        kids = store.fork(store.ROOT, 3)
+        toks = [[t] for t in logits[0, -1].topk(3).indices.tolist()]
+        for i in range(4):
+            batch = [store.restore_pytree(k, cache) for k in kids]
+            c = {n: torch.cat([b[n] for b in batch], dim=1) for n in cache}
+            logits, c = model.decode_step(
+                p, c, torch.tensor([[t[-1]] for t in toks], device=dev),
+                torch.full((3,), 150 + i, device=dev))
+            for j, k in enumerate(kids):
+                store.write_many(k, store.flatten_pytree(
+                    {n: v[:, j:j + 1].clone() for n, v in c.items()}))
+                toks[j].append(int(logits[j, -1].argmax()))
+        store.commit(kids[1])
+        out[dev] = (toks, store.restore_pytree(store.ROOT, cache))
+    assert out["cuda"][0] == out["cpu"][0]
+    for n in ("conv", "ssm", "k", "v"):
+        torch.testing.assert_close(out["cuda"][1][n].cpu(), out["cpu"][1][n],
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "dbrx-132b"])
+@pytest.mark.parametrize("attn_impl", ["auto", "ref"])
+def test_moe_engine_on_the_card_matches_the_cpu(gen, name, attn_impl):
+    """The MoE FFN through the paged engine (capacity drops included),
+    float32, card against CPU."""
+    cfg = dataclasses.replace(reduced(get_config(name), d_model=128),
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(model, params, num_pages=64, page_size=4,
+                          max_pages_per_seq=16, device=dev,
+                          attn_impl=attn_impl if dev == "cuda" else "auto")
+        sid = eng.add_request([5, 17, 3, 42, 7, 11, 2, 9, 30, 4, 8, 1, 22])
+        toks = eng.decode([sid])
+        kids = eng.fork(sid, 3)
+        toks += eng.decode(kids) + eng.decode(kids)
+        toks += eng.spec_verify(kids[0], [[1, 2, 3]])[0]
+        out[dev] = toks
+    assert out["cuda"] == out["cpu"]
 
 
 def _to(tree, dev):

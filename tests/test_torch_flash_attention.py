@@ -35,6 +35,7 @@ def run_port(q, k, v):
     (1, 128, 4, 2, 32),      # GQA, one block
     (2, 256, 6, 2, 64),      # g = 3, two blocks
     (1, 128, 2, 2, 128),     # MHA
+    (1, 128, 2, 2, 112),     # zamba2-7b's shared block: MHA at hd 112
 ], ids=str)
 def test_matches_interpreted_kernel(b, s, h, kv, hd):
     q, k, v = make_qkv(s + h + hd, b, s, h, kv, hd)
@@ -45,7 +46,8 @@ def test_matches_interpreted_kernel(b, s, h, kv, hd):
 
 
 @pytest.mark.parametrize("s,h,kv,hd", [(1, 12, 2, 128), (13, 4, 1, 32),
-                                       (200, 12, 2, 128)], ids=str)
+                                       (200, 12, 2, 128), (77, 4, 4, 112)],
+                         ids=str)
 def test_matches_chunked_attention_at_ragged_lengths(s, h, kv, hd):
     q, k, v = make_qkv(s * 7 + hd, 2, s, h, kv, hd)
     want = jax.jit(chunked_causal_attention, static_argnames="chunk")(

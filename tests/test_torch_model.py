@@ -81,9 +81,15 @@ def test_port_init_has_the_reference_layout(name):
 
 
 def test_bridge_refuses_families_the_port_does_not_serve():
+    """An ``moe`` subtree without its ``router`` is still refused, as are
+    names no family has."""
     params = jax.tree_util.tree_map(np.copy, reference("paper-agentic")[1])
     params["layers"]["moe"] = params["layers"].pop("mlp")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="router"):
+        params_from_jax(params, device="cpu")
+    params["layers"]["moe"]["router"] = params["layers"]["moe"]["wu"]
+    params["layers"]["conv"] = params["layers"]["ln1"]
+    with pytest.raises(NotImplementedError, match="conv"):
         params_from_jax(params, device="cpu")
 
 

@@ -165,12 +165,17 @@ def test_short_prompts_and_other_families_are_refused():
     _, _, pmodel, pparams = both()
     with pytest.raises(ValueError, match="at least 3"):
         pmodel.prefill(pparams, torch.zeros(1, 2).long())
+    # the hybrid is served now (tests/test_torch_hybrid.py): its Model
+    # builds, with the shared block; a family no package has is refused
     hybrid = PortArchConfig(name="h", family="hybrid", num_layers=4,
                             d_model=64, num_heads=4, num_kv_heads=2,
                             d_ff=128, vocab_size=64, ssm_state=16,
-                            attn_every=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(hybrid)
+                            attn_every=2, dtype="float32")
+    params = Model(hybrid).init(torch.Generator().manual_seed(0))
+    assert params["shared"]["w_concat"].shape == (128, 64)
+    other = dataclasses.replace(hybrid, family="rnn")
     with pytest.raises(NotImplementedError):
-        port_decode.decode_step(hybrid, {}, {}, torch.zeros(1, 1).long(),
+        Model(other)
+    with pytest.raises(NotImplementedError):
+        port_decode.decode_step(other, {}, {}, torch.zeros(1, 1).long(),
                                 torch.zeros(1))

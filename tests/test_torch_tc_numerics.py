@@ -395,11 +395,12 @@ def ratios(out_f32: torch.Tensor, ref_f32: torch.Tensor, dtype) -> dict:
 
 
 #: (s, h, kv, hd): qwen2-1.5b's prefill widths, stablelm-12b's hd 160 (five
-#: 32-column panels, the same sums per output element) and musicgen-
-#: medium's MHA (g 1, hd 64)
+#: 32-column panels, the same sums per output element), musicgen-
+#: medium's MHA (g 1, hd 64) and zamba2-7b's hd 112 (staged as 128: the
+#: zero columns add exact zeros)
 FLASH_CASES = [(1, 12, 2, 128), (77, 12, 2, 128), (1023, 12, 2, 128),
                (40, 4, 2, 32), (130, 4, 1, 64), (300, 8, 2, 160),
-               (1023, 4, 1, 160), (130, 4, 4, 64)]
+               (1023, 4, 1, 160), (130, 4, 4, 64), (300, 4, 4, 112)]
 SSD_CASES = [(s, 3, 64, N) for s in (1, 63, 64, 65, 1000, 4096)
              for N in (128, 64)]
 
