@@ -29,7 +29,11 @@ Phases (any failure exits non-zero; nothing is caught into success):
    cached-only paged attention (K3) at qwen2-1.5b's widths and at hd 160,
    b=32, ragged lengths, pages 16 and 4; the SSD scan (K4) at
    mamba2-2.7b's widths (80 heads, P 64, N 128, and N 64), s 1000 and
-   4096, bf16 and f32;
+   4096, bf16 and f32; then training's autograd Functions: K2's gradients
+   for q, k, v at qwen2-1.5b's widths (s 1023 and 2048) and K4's for x,
+   dt, A, B, C at mamba2-2.7b's (s 1000 and 2048), f32 and bf16, against
+   autograd through the plain versions, and each vmap rule over 2
+   branches (one launch) against two plain calls;
 3. the dense path at full width: ``qwen2-1.5b`` in bf16 with random weights
    from the port's seeded init, served by ``ServeEngine`` — 8 prompts of
    128-1024 tokens (two share a 512-token head, so one suffix prefill runs),
@@ -63,6 +67,14 @@ Phases (any failure exits non-zero; nothing is caught into success):
    (``FrontDoor.dispatch``, page 4): a greedy ``/v1/generate`` stream with
    identical events and tokens, and a ``best_of_n`` ``/v1/explore`` that
    commits exactly one winner and drains the pool on either device;
+   training in float32: ``paper-agentic`` and mamba2-2.7b's widths at 4
+   layers through 3 steps of ``build_train_step`` (AdamW, clip, accum 2),
+   losses, grad norms and parameters card vs CPU; on the card a
+   ``FaultTolerantTrainer`` NaN rollback to a bit-identical state, a
+   checkpoint at step 4 restored to replay the stream, a
+   ``speculative_step`` with one replica delayed and one killed, and a
+   ``SpeculativeTrainer`` round under ``set_sync_debug_mode("error")``
+   with the CPU's winner;
 6. the public branch API at full width: ``qwen2-1.5b`` bf16 served through
    ``BranchSession`` and ``ExplorationDriver`` — 8 prompts (phase 3's),
    best-of-4 on four, beam search on two, tree search on one and a
@@ -121,16 +133,30 @@ Phases (any failure exits non-zero; nothing is caught into success):
    width through ``ServeEngine`` with phase 11's load; each config freed
    before the next, with its init peak, largest allocation, prefill ms,
    step p50, tokens/s and device-busy share;
+13. (run before 10, after 12) training at full width and depth in bf16,
+   random weights, through ``FaultTolerantTrainer`` (no checkpoint
+   manager), one config at a time: ``qwen2-1.5b`` at b 4 × s 2048 and
+   ``mamba2-2.7b`` at b 2 × s 2048, 8 steps of AdamW (``cosine_warmup``),
+   clip 1.0, remat on, one injected NaN that must roll back to a
+   bit-identical committed state; every committed loss finite and the
+   last below the first; K2/K4 launches equal their calls, the remat
+   recompute's included (2 per layer and step); step ms p50, tokens/s,
+   the model-FLOP share of the bf16 peak, init and step peaks, and one
+   profiled step's device-busy share, K2/K4 kernel ms and plain backward
+   ms; then ``python -m repro_torch.launch.train --arch paper-agentic
+   --steps 20`` as a subprocess;
 10. the timing of each kernel at the main paths' shapes beside its plain
    version, the nearest single PyTorch call where one exists, the card's
    bound and the time of each kernel's earlier design (from PERF.md: K2
    and K4 on the CUDA cores, K1 and K3 the CUDA-core page walk), and
    rows at phase 11's shapes (K1/K3 at stablelm-12b's decode, K2 at hd
    160 beside SDPA, K1 at nemotron-4-15b's g 6) and phase 12's (K2 at
-   hd 112 beside SDPA, K1 at qwen3-moe-235b-a22b's g 16 decode); then the
-   ``{"kernels": [...]}`` line (K1-K4; launches summed over the main
-   paths and phases 11 and 12), the card line and the final
-   ``{"ok": true, ...}`` line.
+   hd 112 beside SDPA, K1 at qwen3-moe-235b-a22b's g 16 decode) and
+   phase 13's (K2 at b 4 × s 2048 and K4 at b 2 × s 2048: the kernel
+   forward beside the plain forward, the plain recompute backward and, for
+   K2, SDPA's forward + backward); then the ``{"kernels": [...]}`` line
+   (K1-K4; launches summed over the main paths and phases 11, 12 and 13),
+   the card line and the final ``{"ok": true, ...}`` line.
 
 Every path's kernel launch counters are zeroed just before it runs and
 read just after; a kernel of the path that never launched fails the run.
@@ -143,12 +169,15 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import gc
+import importlib
 import json
 import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -169,6 +198,11 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # order noise only.  bf16: the two f32 sums can round to neighbouring bf16
 # values, one ulp apart, and an ulp is at most 2**-7 of the value.
 TOL = {torch.bfloat16: (2e-5, 2 ** -7), torch.float32: (2e-5, 0.0)}
+# gradients are sums over the batch and sequence whose terms are as large
+# as the largest gradient (dt's reach ~2000 while single elements cancel to
+# ~0), so their order noise is held to 1e-5 of the leaf's largest
+# magnitude, on top of TOL's relative term (one bf16 ulp)
+GRAD_SCALE_TOL = 1e-5
 
 
 def log(*args) -> None:
@@ -240,10 +274,14 @@ class Timer:
         return statistics.median(times)
 
 
-def compare(out: torch.Tensor, ref: torch.Tensor) -> dict:
-    """Max abs error, mean |ref| and whether out is finite and within
-    TOL of ref everywhere."""
+def compare(out: torch.Tensor, ref: torch.Tensor, grad: bool = False
+            ) -> dict:
+    """Max abs error, mean |ref| and whether out is finite and within TOL
+    of ref everywhere (a gradient: TOL's relative term and
+    ``GRAD_SCALE_TOL`` of its largest magnitude)."""
     atol, rtol = TOL[ref.dtype]
+    if grad:
+        atol = GRAD_SCALE_TOL * ref.float().abs().max().item()
     o, r = out.float(), ref.float()
     diff = (o - r).abs()
     ok = bool(torch.isfinite(o).all()) and bool(
@@ -252,8 +290,12 @@ def compare(out: torch.Tensor, ref: torch.Tensor) -> dict:
             "mean_abs_ref": r.abs().mean().item(), "ok": ok}
 
 
-def tol_text(c: dict, dtype) -> str:
+def tol_text(c: dict, dtype, grad: bool = False) -> str:
     atol, rtol = TOL[dtype]
+    if grad:
+        return (f"max_abs_err={c['max_abs_err']:.3g} (tol {rtol:.3g}*|ref| "
+                f"+ {GRAD_SCALE_TOL:.0e}*max|ref|, mean |ref| "
+                f"{c['mean_abs_ref']:.3g}) {'ok' if c['ok'] else 'MISMATCH'}")
     return (f"max_abs_err={c['max_abs_err']:.3g} "
             f"(tol {atol:.3g} + {rtol:.3g}*|ref|, mean |ref| "
             f"{c['mean_abs_ref']:.3g}) {'ok' if c['ok'] else 'MISMATCH'}")
@@ -529,6 +571,7 @@ def phase_kernels(gen) -> None:
             f"{tol_text(cy, dtype)}; state {tol_text(cs, torch.float32)}")
         if not (cy["ok"] and cs["ok"]):
             fail("ssd_scan disagrees with its plain version")
+    kernel_grads(gen)
 
 
 def launch_counts() -> dict:
@@ -1120,6 +1163,7 @@ def phase_parity() -> None:
         fail("the committed SSM state differs between card and CPU")
     hybrid_parity()
     moe_parity()
+    train_parity()
 
     cfg = dataclasses.replace(get_config("paper-agentic"), dtype="float32")
     model = Model(cfg)
@@ -2339,6 +2383,603 @@ def phase_hybrid_moe(seed: int = 0) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# training (phase 2's gradient checks, phase 5's parity, phase 13)
+# ---------------------------------------------------------------------------
+
+def kernel_grads(gen) -> None:
+    """Phase 2's training checks: the K2 and K4 autograd Functions (the
+    kernel forward, the plain recompute backward) against autograd through
+    the plain versions, f32 and bf16 (TOL's relative term and
+    ``GRAD_SCALE_TOL`` of each gradient's largest magnitude): K2's gradients for q, k, v
+    at qwen2-1.5b's widths (s 1023 and 2048, chunk 1024) against the
+    chunked attention, K4's for x, dt, A, B, C at mamba2-2.7b's (s 1000
+    and 2048) against ``ssd_scan_ref``; then each Function's vmap rule over
+    2 branches (one launch) against two plain calls, forward and
+    gradients."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.layers import chunked_causal_attention
+
+    def held(label, got, want, names):
+        for name, a, b in zip(names, got, want):
+            c = compare(a, b, grad=True)
+            log(f"{label} d{name}: {tol_text(c, b.dtype, grad=True)}")
+            if not c["ok"]:
+                fail(f"{label}: the gradient for {name} disagrees with "
+                     "autograd through the plain version")
+
+    def grads(out, inputs, g):
+        return torch.autograd.grad(out, inputs, g)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for s in (1023, 2048):
+        for dtype in (bf16, f32):
+            q, k, v = (x.requires_grad_()
+                       for x in flash_case(gen, s=s, dtype=dtype))
+            g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            held(f"K2 grad h=12 kv=2 hd=128 s={s} {str(dtype)[6:]}",
+                 grads(flash_attention(q, k, v, 1024), (q, k, v), g),
+                 grads(chunked_causal_attention(q, k, v, chunk=1024),
+                       (q, k, v), g), ("q", "k", "v"))
+    for s in (1000, 2048):
+        for dtype in (bf16, f32):
+            args = [a.requires_grad_() for a in ssd_case(gen, s=s,
+                                                          dtype=dtype)]
+            y, _ = ssd_scan(*args)
+            gy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+            held(f"K4 grad H=80 P=64 N=128 s={s} {str(dtype)[6:]}",
+                 grads(y, args, gy), grads(ssd_scan_ref(*args)[0], args, gy),
+                 ("x", "dt", "A", "B", "C"))
+
+    # vmap over 2 branches: one launch each, against two plain calls
+    q, k, v = (torch.stack([x, 0.5 * x]) for x in flash_case(gen, s=1023,
+                                                               dtype=f32))
+    g = torch.randn(q.shape, generator=gen, device="cuda")
+    n0 = launch_counts()["flash_attention"]
+    out = torch.func.vmap(flash_attention)(q, k, v)
+    got = torch.func.vmap(torch.func.grad(
+        lambda *a: (flash_attention(*a[:3]) * a[3]).sum(),
+        argnums=(0, 1, 2)))(q, k, v, g)
+    launches = launch_counts()["flash_attention"] - n0
+    for i in range(2):
+        c = compare(out[i], flash_attention_ref(q[i], k[i], v[i]))
+        log(f"K2 vmap branch {i} of 2: {tol_text(c, f32)}")
+        if not c["ok"]:
+            fail("the K2 vmap rule disagrees with a plain call")
+        qi, ki, vi = (x[i].clone().requires_grad_() for x in (q, k, v))
+        held(f"K2 vmap(grad) branch {i} of 2", [t[i] for t in got],
+             grads(chunked_causal_attention(qi, ki, vi), (qi, ki, vi), g[i]),
+             ("q", "k", "v"))
+    x, dt, A, B, C = ssd_case(gen, s=1000, dtype=f32)
+    xs, As = torch.stack([x, 0.5 * x]), torch.stack([A, 0.5 * A])
+    n0 = launch_counts()["ssd_scan"]
+    shared = torch.func.vmap(ssd_scan, in_dims=(0, None, None, None, None))(
+        xs, dt, A, B, C)
+    ssd_launches = launch_counts()["ssd_scan"] - n0
+    mapped = torch.func.vmap(ssd_scan, in_dims=(0, None, 0, None, None))(
+        xs, dt, As, B, C)
+    for i in range(2):
+        for label, res, a in (("A shared", shared, A),
+                              ("A mapped", mapped, As[i])):
+            y_ref, st_ref = ssd_scan_ref(xs[i], dt, a, B, C)
+            cy, cs = compare(res[0][i], y_ref), compare(res[1][i], st_ref)
+            log(f"K4 vmap ({label}) branch {i} of 2: y {tol_text(cy, f32)}"
+                f"; state {tol_text(cs, f32)}")
+            if not (cy["ok"] and cs["ok"]):
+                fail("the K4 vmap rule disagrees with a plain call")
+    log(f"vmap rules: K2 {launches} launches for a forward and a "
+        f"vmap(grad) of 2 branches, K4 {ssd_launches} for 2 branches "
+        "sharing A")
+    if launches != 2 or ssd_launches != 1:
+        fail("a vmap rule did not fold its branches into one launch")
+
+
+def _state_to(state, device):
+    """A TrainState on ``device``."""
+    return state._replace(
+        params=_to(state.params, device),
+        opt_state=_to(state.opt_state, device),
+        ef=None if state.ef is None else type(state.ef)(
+            _to(state.ef.residual, device)),
+        step=state.step.to(device))
+
+
+def _state_leaves(state) -> list:
+    from repro_torch.checkpoint.serialization import flatten_with_path
+
+    return [x for _, x in flatten_with_path(state)]
+
+
+#: phase 5's training parity configs: (name, layers, batch, sequence)
+TRAIN_PARITY = (("paper-agentic", None, 4, 128), ("mamba2-2.7b", 4, 4, 64))
+TRAIN_PARITY_LR = 1e-3
+
+
+def train_parity() -> None:
+    """Phase 5's training checks, float32, card (kernels) against CPU
+    (plain): ``paper-agentic`` and mamba2-2.7b's widths at 4 layers, each 3
+    steps of ``build_train_step`` (AdamW, clip 1.0, accum_steps 2) from one
+    state on the same batches: the losses and grad norms within 1e-4
+    relative, the parameters within ``2 * lr`` per step (AdamW's first
+    step is ±lr per element, ``m̂/√v̂ = sign(g)``, so an element whose
+    gradient lies within the two devices' rounding of zero may move the
+    other way; the mean difference is printed beside it).  Then on the
+    card: a ``FaultTolerantTrainer`` run whose injected NaN rolls back to a
+    bit-identical committed state; a checkpoint at step 4 restored into a
+    new trainer that replays the exact stream (the same batches, losses
+    within 1e-5: the embedding's backward adds with atomics); a
+    ``speculative_step`` with one replica delayed and one killed; and a
+    ``SpeculativeTrainer`` round under ``torch.cuda.set_sync_debug_mode(
+    "error")`` with the CPU's winner and validation losses within 1e-4."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.lifecycle import BranchStatus
+    from repro_torch.data import SyntheticLMPipeline
+    from repro_torch.explore_ctx import SpeculativeTrainer
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import FaultTolerantTrainer
+    from repro_torch.runtime.train_loop import (
+        build_train_step, init_train_state)
+
+    lr = TRAIN_PARITY_LR
+    for name, layers, b, s in TRAIN_PARITY:
+        cfg = dataclasses.replace(get_config(name), dtype="float32",
+                                  num_layers=layers or
+                                  get_config(name).num_layers)
+        model = Model(cfg, attn_chunk=64, loss_chunk=64)
+        opt = adamw(lr)
+        step = build_train_step(model, opt, accum_steps=2, clip_norm=1.0)
+        state = init_train_state(model, opt,
+                                 torch.Generator().manual_seed(0))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            st = _state_to(state, dev)
+            data = SyntheticLMPipeline(cfg, batch=b, seq=s, seed=1,
+                                       device=dev)
+            t0 = time.perf_counter()
+            metrics = []
+            for _ in range(3):
+                st, met = step(st, data.next())
+                metrics.append([float(met["loss"]), float(met["grad_norm"])])
+            runs[dev] = (metrics, _to(st.params, "cpu"),
+                         time.perf_counter() - t0)
+            del st
+        got, want = np.array(runs["cuda"][0]), np.array(runs["cpu"][0])
+        diffs = [(a - b_).abs() for a, b_ in zip(_leaves(runs["cuda"][1]),
+                                                 _leaves(runs["cpu"][1]))]
+        worst = max(float(d.max()) for d in diffs)
+        mean = (sum(float(d.sum()) for d in diffs)
+                / sum(d.numel() for d in diffs))
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        log(f"{name} widths, {cfg.num_layers} layers, 3 train steps (AdamW "
+            f"lr {lr}, clip 1.0, accum 2, b={b} s={s}): losses and grad "
+            f"norms card {got.tolist()} cpu {want.tolist()}, max rel "
+            f"{rel:.3g} (tol 1e-4); params max |cuda - cpu| {worst:.3g} "
+            f"(tol {3 * 2 * lr:.3g} = 2 lr per step), mean {mean:.3g}; "
+            f"cpu {runs['cpu'][2]:.1f} s, card {runs['cuda'][2]:.1f} s")
+        if rel > 1e-4 or worst > 3 * 2 * lr:
+            fail(f"{name}: training on the card disagrees with the CPU")
+
+    # the branch semantics of training, on the card (paper-agentic f32)
+    cfg = dataclasses.replace(get_config("paper-agentic"), dtype="float32")
+    model = Model(cfg, attn_chunk=64, loss_chunk=64)
+    opt = adamw(lr)
+    step = build_train_step(model, opt, clip_norm=1.0)
+    state = init_train_state(model, opt,
+                             torch.Generator(device="cuda").manual_seed(0))
+
+    def data(seed):
+        return SyntheticLMPipeline(cfg, batch=4, seq=128, seed=seed,
+                                   device="cuda")
+
+    tr = FaultTolerantTrainer(step_fn=step, state=state, data=data(2),
+                              corrupt_loss_at=2)
+    tr.run(2)
+    before = tr.committed_state
+    snap = [x.clone() for x in _state_leaves(before)]
+    tr.run(1)                                   # the injected NaN
+    same = tr.committed_state is before and all(
+        torch.equal(a, b_) for a, b_ in zip(_state_leaves(before), snap))
+    tr.run(2)
+    log(f"FaultTolerantTrainer on the card, NaN injected at step 2: "
+        f"rollbacks {tr.rollbacks}, committed step "
+        f"{int(tr.committed_state.step)}, committed state bit-identical "
+        f"after the rollback: {same}")
+    if not same or tr.rollbacks != 1 or int(tr.committed_state.step) != 4:
+        fail("the NaN rollback changed the committed state")
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        a = FaultTolerantTrainer(step_fn=step, state=state, data=data(3),
+                                 ckpt=CheckpointManager(root), ckpt_every=4)
+        a.run(4)
+        a.ckpt = None
+        b_tr = FaultTolerantTrainer.restore(step, state, data(3),
+                                            CheckpointManager(root))
+        batches_same = all(torch.equal(a.data.peek(i)["tokens"],
+                                       b_tr.data.peek(i)["tokens"])
+                           for i in (4, 5))
+        restored, cursor = int(b_tr.state.step), b_tr.data.state().step
+        a.run(2)
+        b_tr.run(2)
+        la = [m["loss"] for m in a.metrics_log[4:]]
+        lb = [m["loss"] for m in b_tr.metrics_log]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"checkpoint at step 4 restored on the card: step {restored}, data "
+        f"cursor {cursor}, batches identical {batches_same}, losses {lb} vs "
+        f"uninterrupted {la}")
+    if (restored != 4 or cursor != 4 or not batches_same
+            or not np.allclose(lb, la, rtol=1e-5, atol=0)):
+        fail("the restored trainer does not replay the stream")
+
+    tr = FaultTolerantTrainer(step_fn=step, state=state, data=data(4))
+    tr.run(1)
+    res = tr.speculative_step(n_replicas=3, delays=[2.0, 0.0, 0.0],
+                              kill=[False, False, True])
+    log(f"speculative_step on the card (replica 0 delayed 2 s, replica 2 "
+        f"killed): {res['outcomes']}, statuses "
+        f"{[st.name for st in res['statuses']]}")
+    if (res["outcomes"] != ["stale", "committed", "killed"]
+            or res["statuses"] != [BranchStatus.STALE,
+                                   BranchStatus.COMMITTED,
+                                   BranchStatus.STALE]):
+        fail("the straggler race did not commit the fast replica alone")
+
+    keys = importlib.import_module("repro_torch.core.explore")
+    spec = SpeculativeTrainer(model, adamw(1e-2), n_branches=4)
+    params = model.init(torch.Generator().manual_seed(1))
+    cpu_state = {"params": params, "opt": spec.opt.init(params)}
+    pipe = SyntheticLMPipeline(cfg, batch=2, seq=128, seed=5, device="cpu")
+    batch, val = pipe.next(), pipe.next()
+    key = keys.key_from(11)
+    rounds = {"cpu": spec.round(cpu_state, key, batch, val)}
+    args = (_to(cpu_state, "cuda"), key.cuda(), _to(batch, "cuda"),
+            _to(val, "cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rounds["cuda"] = spec.round(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    winners = {d: int(r.winner) for d, r in rounds.items()}
+    vals = {d: r.aux.cpu().tolist() for d, r in rounds.items()}
+    rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(vals["cuda"],
+                                                     vals["cpu"]))
+    # two branches that drew one multiplier tie: either may win
+    cpu = vals["cpu"]
+    tie = abs(cpu[winners["cuda"]] - cpu[winners["cpu"]]) \
+        <= 1e-6 * abs(cpu[winners["cpu"]])
+    log(f"SpeculativeTrainer round (4 branches) under sync debug mode "
+        f"'error': winner card {winners['cuda']} cpu {winners['cpu']}"
+        f"{' (a tie: one multiplier)' if winners['cuda'] != winners['cpu'] and tie else ''}, "
+        f"val losses card {vals['cuda']} cpu {cpu} (max rel {rel:.3g}, "
+        "tol 1e-4)")
+    if (not tie or rel > 1e-4
+            or vals["cuda"][winners["cuda"]] != min(vals["cuda"])):
+        fail("the speculative trainer's round differs between card and CPU")
+    torch.cuda.empty_cache()
+
+
+#: phase 13's full-width runs: (config, batch, sequence)
+TRAIN_CONFIGS = (("qwen2-1.5b", 4, 2048), ("mamba2-2.7b", 2, 2048))
+TRAIN_STEPS = 8
+TRAIN_NAN_AT = 3
+PEAK_BF16 = PEAK_OPS_PER_S[torch.bfloat16]
+
+
+def fingerprint(tree) -> torch.Tensor:
+    """Every leaf's bits summed in int64, 2**24 elements at a time: equal
+    fingerprints of one state before and after a step (with the same
+    tensors, untouched version counters) say it was not written."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    sums = []
+    for x in _state_leaves(tree):
+        flat = x.reshape(-1).view(ints[x.element_size()])
+        sums += [torch.sum(part, dtype=torch.int64)
+                 for part in flat.split(1 << 24)]
+    return torch.stack(sums).cpu()
+
+
+@contextlib.contextmanager
+def counted_train_calls():
+    """Count the training forward's calls of K2 and K4 (the names
+    ``models.layers`` and ``models.ssm`` bound at import), the remat
+    recompute's included."""
+    from repro_torch.models import layers, ssm
+
+    sites = {"flash_attention": layers, "ssd_scan": ssm}
+    calls = {name: 0 for name in sites}
+    saved = {name: getattr(mod, name) for name, mod in sites.items()}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+    for name, mod in sites.items():
+        setattr(mod, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, mod in sites.items():
+            setattr(mod, name, saved[name])
+
+
+def profile_train_step(run_step) -> dict:
+    """One training step under torch.profiler (after one traced warm-up
+    step, dropped): device-busy share of the step's wall time, K2's and
+    K4's kernel ms, and the device ms under the two Functions' backward
+    labels (the plain recompute backward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(
+                     p.key_averages())) as prof:
+        run_step()
+        prof.step()
+        t0 = time.perf_counter()
+        run_step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+
+    def device_ms(e, self_only):
+        name = ("self_device_time_total" if self_only
+                else "device_time_total")
+        us = getattr(e, name, None)
+        if us is None:
+            us = getattr(e, name.replace("device", "cuda"), 0)
+        return us / 1e3
+
+    busy = k2 = k4 = 0.0
+    # a label shows as a CPU range, whose device time is its kernels', and
+    # as a GPU annotation spanning them, idle gaps included: read the
+    # former, and count neither as a kernel
+    labels = {"flash_attention.backward": 0.0, "ssd_scan.backward": 0.0}
+    for e in traced[0]:
+        if e.key in labels:
+            if e.device_type == DeviceType.CPU:
+                labels[e.key] += device_ms(e, False)
+            continue
+        if (e.device_type != DeviceType.CUDA
+                or e.key.startswith("ProfilerStep")):
+            continue
+        ms = device_ms(e, True)
+        busy += ms
+        if "flash_attention" in e.key and "kernel" in e.key:
+            k2 += ms
+        if "ssd_scan" in e.key and "kernel" in e.key:
+            k4 += ms
+    if not busy:
+        log("profile: device time not measured (no CUDA events)")
+        return {"wall_ms": wall_ms, "device_busy_share": None}
+    return {"wall_ms": round(wall_ms, 1),
+            "device_busy_ms": round(busy, 1),
+            "device_busy_share": round(busy / wall_ms, 4),
+            "k2_fwd_ms": round(k2, 2), "k4_fwd_ms": round(k4, 2),
+            "k2_plain_bwd_ms": round(labels["flash_attention.backward"], 2)
+            or None,
+            "k4_plain_bwd_ms": round(labels["ssd_scan.backward"], 2) or None}
+
+
+def model_flops(cfg, tokens: int, b: int, s: int) -> float:
+    """6·N·tokens plus causal attention's score and value products
+    (forward and backward, 3 x 2 x 2 x b x s^2/2 x h x hd per layer); the
+    SSD scan's products are not counted."""
+    attn = 0.0
+    if cfg.num_heads:
+        attn = 6.0 * b * s * s * cfg.num_heads * cfg.head_dim \
+            * cfg.num_layers
+    return 6.0 * cfg.param_count() * tokens + attn
+
+
+def phase_train(seed: int = 0) -> dict:
+    """Phase 13: training at full width and depth in bf16, random weights
+    from the port's init, one config at a time (each freed before the
+    next), through ``FaultTolerantTrainer`` without a checkpoint manager:
+    ``TRAIN_STEPS`` steps of AdamW (``cosine_warmup``), clip 1.0, remat on,
+    one injected NaN that must roll back to a bit-identical committed
+    state; every committed loss finite, the last below the first, K2/K4
+    launches equal to their calls (the remat recompute's included: 2 per
+    layer and step).  Then the training CLI as a subprocess."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMPipeline
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.runtime.fault import FaultTolerantTrainer
+    from repro_torch.runtime.train_loop import (
+        build_train_step, init_train_state)
+
+    card = card_line()
+    log(f"== phase 13: training at full width and depth, bf16, random "
+        f"weights ({card})")
+    gc.collect()
+    out = {}
+    for name, b, s in TRAIN_CONFIGS:
+        cfg = get_config(name)
+        model = Model(cfg)
+        opt = adamw(cosine_warmup(1e-3, 2, TRAIN_STEPS))
+        step = build_train_step(model, opt, clip_norm=1.0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = init_train_state(
+            model, opt, torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        res = {"params_b": round(cfg.param_count() / 1e9, 3),
+               "b": b, "s": s, "init_s": round(time.perf_counter() - t0, 1),
+               "init_peak_gb": round(torch.cuda.max_memory_allocated()
+                                     / 1e9, 2)}
+        tr = FaultTolerantTrainer(
+            step_fn=step, state=state, data=SyntheticLMPipeline(
+                cfg, batch=b, seq=s, seed=seed, device="cuda"),
+            corrupt_loss_at=TRAIN_NAN_AT)
+        del state
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        times, rollback_same = [], None
+        with counted_train_calls() as calls:
+            for i in range(TRAIN_STEPS):
+                if i == TRAIN_NAN_AT:
+                    before = tr.committed_state
+                    fp = fingerprint(before)
+                    versions = [x._version for x in _state_leaves(before)]
+                t1 = time.perf_counter()
+                tr.run(1)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+                log(f"{name} step {i}: {times[-1]:.1f} ms, committed "
+                    f"{len(tr.metrics_log)}, rollbacks {tr.rollbacks}, "
+                    f"loss {tr.metrics_log[-1]['loss']:.4f}")
+                if i == TRAIN_NAN_AT:
+                    after = tr.committed_state
+                    rollback_same = (
+                        after is before and torch.equal(fingerprint(after), fp)
+                        and versions == [x._version
+                                         for x in _state_leaves(after)])
+                    del before, after
+        launches = launch_counts()
+        res["step_peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9,
+                                    2)
+        losses = [m["loss"] for m in tr.metrics_log]
+        attn_calls, ssd_calls = calls["flash_attention"], calls["ssd_scan"]
+        res["launches"] = {"flash_attention": launches["flash_attention"],
+                           "ssd_scan": launches["ssd_scan"]}
+        res["calls"] = dict(calls)
+        # the steady steps: not the first (lazy set-up) nor the rolled-back
+        steady = [t for i, t in enumerate(times) if i not in (0, TRAIN_NAN_AT)]
+        p50 = statistics.median(steady)
+        tokens = b * s
+        res.update(
+            losses=[round(x, 4) for x in losses], rollbacks=tr.rollbacks,
+            rollback_bit_identical=rollback_same,
+            step_ms=[round(t, 1) for t in times], step_ms_p50=round(p50, 1),
+            tokens_per_s=round(tokens / p50 * 1e3),
+            model_flop_share=round(model_flops(cfg, tokens, b, s)
+                                   / (p50 / 1e3) / PEAK_BF16, 4))
+        n_attn = cfg.num_layers if cfg.num_heads else 0
+        n_ssd = cfg.num_layers if cfg.family == "ssm" else 0
+        res["profile"] = profile_train_step(lambda: (tr.run(1),
+                                                     torch.cuda.synchronize()))
+        log(f"{name} b={b} s={s}: {json.dumps(res)} ({card})")
+        if (not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS - 1
+                or not losses[-1] < losses[0]):
+            fail(f"{name}: training did not commit finite, falling losses: "
+                 f"{losses}")
+        if tr.rollbacks != 1 or not rollback_same:
+            fail(f"{name}: the injected NaN did not roll back to a "
+                 "bit-identical committed state")
+        if (launches["flash_attention"] != attn_calls
+                or launches["ssd_scan"] != ssd_calls
+                or attn_calls != 2 * n_attn * TRAIN_STEPS
+                or ssd_calls != 2 * n_ssd * TRAIN_STEPS):
+            fail(f"{name}: K2/K4 launches {res['launches']} for calls "
+                 f"{calls} (2 per layer and step with remat expected)")
+        out[name] = res
+        # the trainer's store and its branch tree refer to each other
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["cli"] = train_cli_run()
+    return out
+
+
+def train_cli_run() -> dict:
+    """``python -m repro_torch.launch.train --arch paper-agentic --steps
+    20`` as a subprocess (its own checkpoint directory, removed after)."""
+    root = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "paper-agentic", "--steps", "20", "--ckpt-dir", root]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, env=src_env(),
+                              capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() \
+        else ""
+    log(f"{' '.join(cmd[1:-2])}: exit {proc.returncode} in {secs:.1f} s: "
+        f"{last!r}")
+    if proc.returncode != 0 or not last.startswith("done: step 20 loss "):
+        log(proc.stderr[-4000:])
+        fail("the training CLI did not finish its 20 steps")
+    return {"exit": proc.returncode, "s": round(secs, 1), "line": last}
+
+
+def train_timing(gen, timer, train: dict) -> None:
+    """Phase 10's training rows at phase 13's shapes, bf16: K2 at
+    qwen2-1.5b's (b 4, s 2048, h 12, kv 2, hd 128; chunk 1024) and K4 at
+    mamba2-2.7b's (b 2, s 2048, H 80, P 64, N 128): the kernel forward
+    beside the plain forward and the plain recompute backward (the
+    Functions' backward bodies), and for K2 SDPA's forward + backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_vjp
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.layers import chunked_attention_vjp
+
+    bf16 = torch.bfloat16
+    rows = {}
+    (_, b, s), (_, b4, s4) = TRAIN_CONFIGS
+    q, k, v, g = (torch.randn(b, s, n, 128, generator=gen,
+                              device="cuda").to(bf16) for n in (12, 2, 2, 12))
+    c = compare(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+    if not c["ok"]:
+        fail(f"K2 at phase 13's shape: {tol_text(c, bf16)}")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        torch.autograd.grad(o, (qt, kt, vt), gt)
+    bnd, by = bound_ms(*flash_cost(q, k), bf16)
+    rows[f"K2 training b={b} s={s}"] = dict(
+        ms=timer(lambda: flash_attention(q, k, v)),
+        plain_ms=timer(lambda: flash_attention_ref(q, k, v), 5),
+        plain_bwd_ms=timer(lambda: chunked_attention_vjp(q, k, v, g,
+                                                         chunk=1024), 5),
+        library_fwd_bwd_ms=timer(sdpa), bound_ms=bnd, bound_by=by,
+        launches=train["qwen2-1.5b"]["launches"]["flash_attention"],
+        max_abs_err=c["max_abs_err"])
+    args = ssd_case(gen, s=s4, b=b4)
+    y_ref, st_ref = ssd_scan_ref(*args)
+    y, st = ssd_scan(*args)
+    cy, cs = compare(y, y_ref), compare(st, st_ref)
+    if not (cy["ok"] and cs["ok"]):
+        fail(f"K4 at phase 13's shape: y {tol_text(cy, bf16)}; state "
+             f"{tol_text(cs, torch.float32)}")
+    gy = torch.randn(y.shape, generator=gen, device="cuda").to(bf16)
+    bnd, by = bound_ms(*ssd_cost(args[0], args[3]), bf16)
+    rows[f"K4 training b={b4} s={s4}"] = dict(
+        ms=timer(lambda: ssd_scan(*args)),
+        plain_ms=timer(lambda: ssd_scan_ref(*args), 5),
+        plain_bwd_ms=timer(lambda: ssd_scan_vjp(*args, gy, None), 5),
+        library_fwd_bwd_ms=None, bound_ms=bnd, bound_by=by,
+        launches=train["mamba2-2.7b"]["launches"]["ssd_scan"],
+        max_abs_err=max(cy["max_abs_err"], cs["max_abs_err"]))
+    for label, r in rows.items():
+        log(f"{label}: kernel forward {r['ms']:.4f} ms, plain forward "
+            f"{r['plain_ms']:.4f} ms, plain recompute backward "
+            f"{r['plain_bwd_ms']:.4f} ms, sdpa forward + backward "
+            f"{r['library_fwd_bwd_ms'] if r['library_fwd_bwd_ms'] is None else round(r['library_fwd_bwd_ms'], 4)} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['launches']} launches in phase 13")
+    log("training kernel rows: " + json.dumps(rows))
+
+
 @contextlib.contextmanager
 def forced_splits(n: int):
     """Split K1's page walk into n ranges, one block each (the wrapper
@@ -2354,7 +2995,8 @@ def forced_splits(n: int):
 
 
 def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
-                 explore: dict, door: dict, families: dict) -> list:
+                 explore: dict, door: dict, families: dict,
+                 train: dict) -> list:
     """Kernel rows: K1 and K2 at the fused dense path's shapes, K3 at path
     B's, K4 at path A's; K1's and K2's launches are the fused dense
     path's, the public API phase's, the front door's and phases 11 and
@@ -2467,7 +3109,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         "launches": main["launches"]["flash_attention"]
         + explore["launches"]["flash_attention"]
         + door["launches"]["flash_attention"]
-        + family_launches(families, "flash_attention"),
+        + family_launches(families, "flash_attention")
+        + train["qwen2-1.5b"]["launches"]["flash_attention"],
         "max_abs_err": f["max_abs_err"], "ms": f["ms"],
         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
@@ -2532,12 +3175,14 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:92",
         "launches": ssm["launches"]["ssd_scan"]
-        + family_launches(families, "ssd_scan"),
+        + family_launches(families, "ssd_scan")
+        + train["mamba2-2.7b"]["launches"]["ssd_scan"],
         "max_abs_err": d["max_abs_err"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
     })
     family_timing(gen, timer, families)
+    train_timing(gen, timer, train)
     return rows
 
 
@@ -2669,7 +3314,9 @@ def main() -> None:
     fs = phase_branchfs()
     families = phase_families()
     families.update(phase_hybrid_moe())
-    rows = phase_timing(gen, dense, legacy, ssm, explore, door, families)
+    train = phase_train()
+    rows = phase_timing(gen, dense, legacy, ssm, explore, door, families,
+                        train)
     log(f"total {time.perf_counter() - t0:.1f} s after the build")
     keys = ("prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",
             "launches", "profile")
@@ -2685,6 +3332,7 @@ def main() -> None:
     log("front door phase: " + json.dumps(door))
     log("device explore: " + json.dumps(device_explore))
     log(f"BranchFS ({os.uname().nodename}): " + json.dumps(fs))
+    log("training phase (13): " + json.dumps(train))
     log("families phases (11, 12): " + json.dumps(
         {name: {k: ({kk: r[kk] for kk in ("prefill_ms", "decode_step_ms_p50",
                                            "decode_tokens_per_s",

@@ -11,6 +11,12 @@ block with ``w_concat`` ``[2d, d]``), so the bridge checks names and
 converts dtypes: bfloat16 arrives as ``ml_dtypes.bfloat16`` and crosses
 as its ``uint16`` bit pattern, as ``repro/checkpoint/serialization.py``
 stores it, so no value is rounded on the way.
+
+:func:`train_state_from_jax` carries a whole reference ``TrainState`` (as
+numpy) over: the parameters, the optimizer state (AdamW's ``mu``/``nu``
+or SGD's ``velocity``, each a tree like the parameters, and its ``step``)
+and the error-feedback residual, so both packages can train from one
+state.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.optim.compress import ErrorFeedbackState
+from repro_torch.runtime.train_loop import TrainState
 
 TOP = {"embed", "frontend_proj", "layers", "final_norm", "lm_head", "shared"}
 LAYER = {"ln1", "ln2", "attn", "mlp"}
@@ -99,3 +107,18 @@ def params_from_jax(tree: Dict[str, Any], device: Any = None
         return tensor_from_numpy(x, device)
 
     return conv(tree)
+
+
+def train_state_from_jax(state: Any, device: Any = None) -> TrainState:
+    """The JAX package's ``TrainState`` (numpy leaves; any object with its
+    ``params``, ``opt_state``, ``ef`` and ``step``) as the port's, on
+    ``device`` (the card unless the caller names one)."""
+    device = resolve_device(device)
+    opt = {k: (tensor_from_numpy(v, device) if k == "step"
+               else params_from_jax(v, device))
+           for k, v in state.opt_state.items()}
+    ef = (None if state.ef is None else ErrorFeedbackState(
+        residual=params_from_jax(state.ef.residual, device)))
+    return TrainState(params=params_from_jax(state.params, device),
+                      opt_state=opt, ef=ef,
+                      step=tensor_from_numpy(state.step, device))

@@ -5,9 +5,9 @@ admission-checked branch lifecycle, an event-driven
 :class:`ExplorationDriver` that multiplexes many concurrent searches
 over one engine's continuous-batching loop, and a library of reusable
 policies: :func:`best_of_n`, :func:`beam_search`, :func:`tree_search`,
-:func:`speculative_decode`.  See DESIGN §9.  The port's copy of
-``repro.explore_ctx``; the training-side ``SpeculativeTrainer`` is not
-ported yet (ROADMAP).
+:func:`speculative_decode`, and the training-side
+:class:`SpeculativeTrainer`.  See DESIGN §9.  The port's copy of
+``repro.explore_ctx``.
 """
 
 from repro_torch.explore_ctx.context import BranchContext, PolicyResult
@@ -30,7 +30,10 @@ from repro_torch.explore_ctx.scoring import (
     lcp_len,
     mean_token_score,
 )
-from repro_torch.explore_ctx.speculative import speculative_decode
+from repro_torch.explore_ctx.speculative import (
+    SpeculativeTrainer,
+    speculative_decode,
+)
 
 __all__ = [
     "BranchContext",
@@ -39,6 +42,7 @@ __all__ = [
     "ExplorationDriver",
     "Fork",
     "PolicyResult",
+    "SpeculativeTrainer",
     "Submit",
     "Tick",
     "beam_search",

@@ -1,7 +1,9 @@
 """Speculative exploration — drafts verified against a target.
 
-The port's copy of ``speculative_decode`` from
-``repro/explore_ctx/speculative.py``, the serving policy: N sampled
+The port's copy of ``repro/explore_ctx/speculative.py``; two faces of the
+same fork/explore/commit pattern.
+
+:func:`speculative_decode` is the serving policy: N sampled
 **draft** branches decode ``k`` tokens each; then ONE fused ``verify``
 dispatch against the frozen origin (``ServeEngine.spec_verify``, the
 paged chunk attention kernel at t = k) teacher-forces every draft row
@@ -14,19 +16,26 @@ drafts come from a cheaper model; here both share the engine, so the
 policy demonstrates the lifecycle + the one-dispatch verify, not an
 end-to-end speedup.
 
-The JAX package's training face, ``SpeculativeTrainer``, belongs to the
-training slice and is not ported yet (ROADMAP).
+:class:`SpeculativeTrainer` is the training face: every step forks K
+candidate update branches inside one vmapped program (a stacked leading
+axis), runs them in parallel, and first-commit-wins selects the update
+with the best validation loss.
 """
 
 from __future__ import annotations
 
-from typing import Generator
+from typing import Any, Dict, Generator, Tuple, Union
+
+import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.api.flags import BR_SPECULATIVE
 from repro_torch.core.errors import BranchError
+from repro_torch.core.explore import ExploreResult, explore, uniform
 from repro_torch.explore_ctx.context import BranchContext, policy_result
 from repro_torch.explore_ctx.driver import Decode, Fork
 from repro_torch.explore_ctx.scoring import lcp_len
+from repro_torch.optim import apply_updates
 
 
 def speculative_decode(ctx: BranchContext, *, n_drafts: int = 3,
@@ -102,4 +111,66 @@ def speculative_decode(ctx: BranchContext, *, n_drafts: int = 3,
         acceptance_rate=accepted / max(draft_tokens, 1))
 
 
-__all__ = ["speculative_decode"]
+class SpeculativeTrainer:
+    """Fork-K-updates/commit-best training, packaged.
+
+    ``step`` runs one fork/explore/commit round with no host sync before
+    its ``info`` is built: each branch takes ``torch.func.grad`` of the
+    loss (inside ``torch.func.vmap`` over the branches, so the flash
+    attention and SSD scan kernels run through their vmap rules), scales
+    the gradient by a learning-rate multiplier drawn from its branch key
+    (``lr_scale_base * 2**i``, ``i`` uniform in ``[0, lr_scale_steps)``),
+    and applies the optimizer; success is a finite validation loss, and
+    the branch with the earliest commit time (here: the lowest validation
+    loss) wins.  If every branch diverges the frozen origin resumes
+    unchanged — the paper's "if all branches abort, the parent resumes".
+    """
+
+    def __init__(self, model: Any, opt: Any, *, n_branches: int = 4,
+                 lr_scale_base: float = 0.25, lr_scale_steps: int = 4):
+        self.model = model
+        self.opt = opt
+        self.n_branches = n_branches
+
+        def one_branch(state, key, batch, val_batch):
+            i = torch.floor(uniform(key) * lr_scale_steps)
+            lr_scale = lr_scale_base * torch.pow(2.0, i)
+
+            def loss_fn(p):
+                return model.loss(p, batch)[0]
+
+            grads = torch.func.grad(loss_fn)(state["params"])
+            grads = pytree.tree_map(lambda g: g * lr_scale, grads)
+            updates, new_opt = opt.update(grads, state["opt"],
+                                          state["params"])
+            new_params = apply_updates(state["params"], updates)
+            val = model.loss(new_params, val_batch)[0]
+            return ({"params": new_params, "opt": new_opt},
+                    torch.isfinite(val), val)
+
+        self._one_branch = one_branch
+
+    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+        params = self.model.init(generator)
+        return {"params": params, "opt": self.opt.init(params)}
+
+    def round(self, state: Dict[str, Any],
+              generator: Union[torch.Generator, int, torch.Tensor],
+              batch: Any, val_batch: Any) -> ExploreResult:
+        """The round on the device, nothing brought to the host."""
+        return explore(
+            lambda s, k: self._one_branch(s, k, batch, val_batch),
+            state, self.n_branches, generator, commit_time_fn=lambda a: a)
+
+    def step(self, state: Dict[str, Any],
+             generator: Union[torch.Generator, int, torch.Tensor],
+             batch: Any, val_batch: Any
+             ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        res = self.round(state, generator, batch, val_batch)
+        info = {"winner": int(res.winner),
+                "committed": bool(res.committed),
+                "val_losses": [float(v) for v in res.aux]}
+        return res.state, info
+
+
+__all__ = ["SpeculativeTrainer", "speculative_decode"]

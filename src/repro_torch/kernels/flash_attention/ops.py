@@ -1,15 +1,27 @@
-"""Causal GQA flash attention (forward): the wrapper the dense prefill calls.
+"""Causal GQA flash attention: the wrapper the dense prefill and the
+training forward call, with a gradient.
 
-A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
-the hand-written kernel in ``csrc/flash_attention.cu`` or raises — there is
-no fallback on the card.  bf16 runs the tensor-core design (wgmma, TMA), f32
-the CUDA-core one.  Prompts of any length run (the kernel masks its
-ragged tail).  ``LAUNCHES`` counts kernel launches.
+The forward on a CPU tensor runs the plain version in ``ref.py``; on a
+CUDA tensor it launches the hand-written kernel in
+``csrc/flash_attention.cu`` or raises — there is no fallback on the card.
+bf16 runs the tensor-core design (wgmma, TMA), f32 the CUDA-core one.
+Prompts of any length run (the kernel masks its ragged tail).
+``LAUNCHES`` counts kernel launches.
+
+:class:`FlashAttention` carries the gradient, as the JAX package's
+``custom_vjp`` does (``repro/kernels/flash_attention/ops.py``): the
+forward saves ``q, k, v`` and the backward recomputes the attention
+through the plain chunked version one query chunk at a time
+(:func:`repro_torch.models.layers.chunked_attention_vjp`), on either
+device; there is no backward kernel.  Its ``vmap`` rule folds the mapped
+dimension into the batch, so ``torch.func.vmap`` (which cannot see through
+a raw-pointer launch) still launches the kernel once.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Any, Tuple
 
 import torch
 
@@ -24,9 +36,9 @@ HEAD_DIMS = (32, 64, 112, 128, 160)
 SPLIT_TERMS = {"P": 2}
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """q: [b, s, h, hd]; k, v: [b, s, kv, hd]; returns [b, s, h, hd]."""
+def _forward(q: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+    """The plain version for CPU tensors, the kernel for CUDA tensors."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
     if q.device.type != "cuda":
@@ -56,3 +68,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     _build.check(NAME, rc)
     LAUNCHES[NAME] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The attention with a recompute backward (``chunk``: the query rows
+    per recomputed block of the backward)."""
+
+    @staticmethod
+    def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                chunk: int) -> torch.Tensor:
+        return _forward(q, k, v)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Tuple, output: torch.Tensor) -> None:
+        q, k, v, chunk = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.chunk = chunk
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor):
+        # models.layers imports this module: import it at use
+        from repro_torch.models.layers import chunked_attention_vjp
+
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention.backward"):
+            return (*chunked_attention_vjp(q, k, v, g, chunk=ctx.chunk),
+                    None)
+
+    @staticmethod
+    def vmap(info: Any, in_dims: Tuple, q: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor, chunk: int):
+        n = info.batch_size
+
+        def fold(x: torch.Tensor, dim) -> torch.Tensor:
+            x = (x.unsqueeze(0).expand(n, *x.shape) if dim is None
+                 else x.movedim(dim, 0))
+            return x.reshape(n * x.shape[1], *x.shape[2:]).contiguous()
+
+        out = FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                                   fold(v, in_dims[2]), chunk)
+        return out.unflatten(0, (n, -1)), 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    chunk: int = 1024) -> torch.Tensor:
+    """q: [b, s, h, hd]; k, v: [b, s, kv, hd]; returns [b, s, h, hd].
+    Differentiable in ``q, k, v``; ``chunk`` shapes only the backward."""
+    return FlashAttention.apply(q, k, v, chunk)

@@ -1,17 +1,26 @@
-"""Mamba2 SSD chunked scan (forward): the wrapper the SSM prefill calls.
+"""Mamba2 SSD chunked scan: the wrapper the SSM prefill and the training
+forward call, with a gradient.
 
-A CPU tensor runs the plain version in ``ref.py``; a CUDA tensor launches
-the hand-written kernel in ``csrc/ssd_scan.cu`` or raises — there is no
-fallback on the card.  bf16 runs the tensor-core design (wgmma, TMA), f32
-the CUDA-core one.  Any length runs (the kernel pads its ragged tail).
-The kernel walks the sequence in its own row tile, so ``chunk`` shapes
-only the plain version; the result does not depend on it in exact
-arithmetic.  ``LAUNCHES`` counts kernel launches.
+The forward on a CPU tensor runs the plain version in ``ref.py``; on a
+CUDA tensor it launches the hand-written kernel in ``csrc/ssd_scan.cu`` or
+raises — there is no fallback on the card.  bf16 runs the tensor-core
+design (wgmma, TMA), f32 the CUDA-core one.  Any length runs (the kernel
+pads its ragged tail).  The kernel walks the sequence in its own row tile,
+so ``chunk`` shapes only the plain version; the result does not depend on
+it in exact arithmetic.  ``LAUNCHES`` counts kernel launches.
+
+:class:`SSDScan` carries the gradient: the JAX package's SSD scan has no
+VJP of its own (training differentiates its jnp ``ssd_chunked``), so the
+backward recomputes the plain ``ssd_scan_ref`` and takes its VJP, on
+either device; there is no backward kernel.  ``final_state``'s incoming
+gradient may be absent (training drops the state).  Its ``vmap`` rule
+folds the mapped dimension into the batch when ``A`` is not mapped (one
+launch), and launches once per mapped slice when it is.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -48,12 +57,10 @@ def _check(x, dt, A, B, C) -> None:
     _build.check_aligned(NAME, x=x, B=B, C=C)
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             B: torch.Tensor, C: torch.Tensor, chunk: int = 128
+def _forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, chunk: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [b,s,H,P]; dt [b,s,H] f32 (post-softplus); A [H] f32 (negative);
-    B/C [b,s,N].  Returns (y [b,s,H,P] in x's dtype, final state
-    [b,H,N,P] f32)."""
+    """The plain version for CPU tensors, the kernel for CUDA tensors."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
@@ -71,3 +78,64 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _build.check(NAME, rc)
     LAUNCHES[NAME] += 1
     return y, state
+
+
+def ssd_scan_vjp(x, dt, A, B, C, gy: Optional[torch.Tensor],
+                 gstate: Optional[torch.Tensor], chunk: int = 128
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The gradients for ``x, dt, A, B, C`` given those of ``y`` and the
+    final state (either may be ``None``: zero), through ``ssd_scan_ref``
+    recomputed (``torch.func.vjp``, which composes with the ``torch.func``
+    transforms)."""
+    (y, state), vjp = torch.func.vjp(
+        lambda *a: ssd_scan_ref(*a, chunk=chunk), x, dt, A, B, C)
+    return vjp((torch.zeros_like(y) if gy is None else gy,
+                torch.zeros_like(state) if gstate is None else gstate))
+
+
+class SSDScan(torch.autograd.Function):
+    """The scan with a recompute backward through ``ssd_scan_ref``."""
+
+    @staticmethod
+    def forward(x, dt, A, B, C, chunk: int):
+        return _forward(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Tuple, output: Tuple) -> None:
+        *tensors, chunk = inputs
+        ctx.save_for_backward(*tensors)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx: Any, gy: torch.Tensor, gstate: torch.Tensor):
+        with torch.profiler.record_function("ssd_scan.backward"):
+            return (*ssd_scan_vjp(*ctx.saved_tensors, gy, gstate,
+                                  chunk=ctx.chunk), None)
+
+    @staticmethod
+    def vmap(info: Any, in_dims: Tuple, x, dt, A, B, C, chunk: int):
+        n = info.batch_size
+        args = [t.movedim(d, 0) if d is not None
+                else t.unsqueeze(0).expand(n, *t.shape)
+                for t, d in zip((x, dt, A, B, C), in_dims)]
+        if in_dims[2] is None:
+            # A is shared: fold the mapped dimension into the batch
+            x, dt, _, B, C = (t.reshape(-1, *t.shape[2:]).contiguous()
+                              for t in args)
+            y, state = SSDScan.apply(x, dt, A, B, C, chunk)
+            return (y.unflatten(0, (n, -1)), state.unflatten(0, (n, -1))), \
+                (0, 0)
+        outs = [SSDScan.apply(*(t[i].contiguous() for t in args), chunk)
+                for i in range(n)]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs])), (0, 0)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, chunk: int = 128
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [b,s,H,P]; dt [b,s,H] f32 (post-softplus); A [H] f32 (negative);
+    B/C [b,s,N].  Returns (y [b,s,H,P] in x's dtype, final state
+    [b,H,N,P] f32), differentiable in ``x, dt, A, B, C``."""
+    return SSDScan.apply(x, dt, A, B, C, chunk)

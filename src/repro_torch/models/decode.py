@@ -48,16 +48,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import layers as L
 from repro_torch.models.moe import ffn
-from repro_torch.models.ssm import (
-    _split_proj,
-    _split_xbc,
-    causal_conv1d,
-    mamba_decode_block,
-    softplus_dt,
-)
+from repro_torch.models.ssm import mamba_decode_block, mamba_forward
 from repro_torch.models.transformer import (
     ATTN_FAMILIES,
     SSM_FAMILIES,
@@ -178,9 +171,9 @@ def _ssm_prefill(cfg: ArchConfig, p: Params, tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         lp = L.layer_params(p["layers"], i)
         x = L.rms_norm(h, lp["ln"], cfg.norm_eps)
-        y, conv, ssm = _mamba_prefill(cfg, lp["mamba"], x)
+        y, conv, ssm = mamba_forward(cfg, lp["mamba"], x)
         h = h + y
-        convs.append(conv)
+        convs.append(conv.contiguous())
         ssms.append(ssm)
         if hybrid and (i + 1) % every == 0 and i < n_apps * every:
             h, k, v = _shared_prefill(cfg, p["shared"], h, h0, positions)
@@ -204,26 +197,6 @@ def _shared_prefill(cfg: ArchConfig, sp: Params, h: torch.Tensor,
     x = x + L.attn_out(flash_attention(q, k, v), sp["attn"]["wo"])
     m = L.mlp_block(cfg, sp["mlp"], L.rms_norm(x, sp["ln2"], cfg.norm_eps))
     return h + x + m, k, v
-
-
-def _mamba_prefill(cfg: ArchConfig, lp: Params, x: torch.Tensor):
-    """Mamba block over the prompt, also returning (conv_state,
-    ssm_state); the scan is the SSD scan kernel."""
-    b, s, _ = x.shape
-    di, H, Pd = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_head_dim
-    ck = cfg.ssm_conv_kernel
-    z, xBC_pre, dt = _split_proj(cfg, x @ lp["in_proj"])
-    # conv state = the last ck - 1 *pre-activation* conv inputs
-    conv_state = xBC_pre[:, s - (ck - 1):, :].contiguous()
-    xBC = causal_conv1d(xBC_pre, lp["conv_w"], lp["conv_b"])
-    xs, B, C = _split_xbc(cfg, xBC)
-    xs = xs.reshape(b, s, H, Pd).contiguous()
-    A = -torch.exp(lp["A_log"])
-    y, ssm_state = ssd_scan(xs, softplus_dt(dt, lp["dt_bias"]).contiguous(),
-                            A, B.contiguous(), C.contiguous(), cfg.ssm_chunk)
-    y = y + lp["D"].to(y.dtype)[None, None, :, None] * xs
-    y = L.gated_rms_norm(y.reshape(b, s, di), z, lp["norm_w"], cfg.norm_eps)
-    return y @ lp["out_proj"], conv_state, ssm_state
 
 
 # ---------------------------------------------------------------------------

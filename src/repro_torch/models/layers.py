@@ -1,5 +1,6 @@
-"""Dense transformer layers of the port: norm, rotary, GQA projection, MLP
-and one-token decode attention over a contiguous KV cache.
+"""Dense transformer layers of the port: norm, rotary, GQA projection, MLP,
+the training attention block and one-token decode attention over a
+contiguous KV cache.
 
 Counterparts of ``repro/models/layers.py``.  Parameters keep the JAX
 package's layout (``wq`` is ``[d, h, hd]``, ``wo`` is ``[h, hd, d]``, ...)
@@ -10,12 +11,14 @@ stacked ``[L, ...]`` and :func:`layer_params` slices one layer out.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention import flash_attention
 
 Params = Dict[str, Any]
 
@@ -41,6 +44,30 @@ def layer_params(p: Any, i: int) -> Any:
     if isinstance(p, dict):
         return {k: layer_params(v, i) for k, v in p.items()}
     return p[i]
+
+
+def unstack_layers(p: Any, n: int) -> List[Any]:
+    """The ``n`` layer trees of a stacked ``[L, ...]`` tree, each leaf
+    split by one ``unbind``: its backward stacks the layers' gradients
+    once, where ``n`` selects would each write a zero-filled ``[L, ...]``
+    gradient."""
+    if isinstance(p, dict):
+        parts = {k: unstack_layers(v, n) for k, v in p.items()}
+        return [{k: parts[k][i] for k in p} for i in range(n)]
+    return list(torch.unbind(p[:n], 0))
+
+
+def remat(fn: Callable, *args: Any) -> Any:
+    """``fn(*args)`` with its activations recomputed in the backward
+    instead of kept, as ``jax.checkpoint``.  It runs as is where nothing
+    records a backward, and under a ``torch.func`` transform, which cannot
+    run checkpoint's saved-tensor hooks (the transform keeps what it
+    needs)."""
+    if (not torch.is_grad_enabled()
+            or torch._C._functorch.peek_interpreter_stack() is not None):
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +160,97 @@ def attn_out(a: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matmul."""
     h, hd, d = wo.shape
     return a.reshape(*a.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+
+
+def _attn_chunk(s: int, chunk: int) -> int:
+    """Query rows per chunk: ``chunk``, or ``gcd(chunk, s)`` where it does
+    not divide ``s``, as the JAX package."""
+    chunk = min(chunk, s)
+    return chunk if s % chunk == 0 else math.gcd(chunk, s)
+
+
+def _chunk_attention(q_c: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     c0: int) -> torch.Tensor:
+    """Causal attention of the query rows ``[c0, c0 + c)`` over the keys
+    ``k, v`` ``[b, c0 + c, kv, hd]`` (the later keys are masked for every
+    row of the chunk, so they are left out).  Scores and softmax in f32,
+    the probabilities in the value type for ``P·V``, as the JAX package."""
+    b, c, h, hd = q_c.shape
+    kvh = k.shape[2]
+    qr = q_c.reshape(b, c, kvh, h // kvh, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qr.float(),
+                          k.float()) * (1.0 / math.sqrt(hd))
+    qpos = c0 + torch.arange(c, device=q_c.device)
+    kpos = torch.arange(k.shape[1], device=q_c.device)
+    mask = kpos[None, :] <= qpos[:, None]                    # [c, s]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
+    return out.reshape(b, c, h, hd)
+
+
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, chunk: int = 1024
+                             ) -> torch.Tensor:
+    """Causal GQA attention with O(s·chunk) score memory: q ``[b, s, h,
+    hd]``, k/v ``[b, s, kv, hd]``.  Scores are computed one query chunk at
+    a time and each chunk is recomputed in the backward (:func:`remat`),
+    the flash-backward structure of the JAX package's version."""
+    s = q.shape[1]
+    chunk = _attn_chunk(s, chunk)
+    return torch.cat([
+        remat(_chunk_attention, q[:, c0:c0 + chunk], k[:, :c0 + chunk],
+              v[:, :c0 + chunk], c0)
+        for c0 in range(0, s, chunk)], dim=1)
+
+
+#: f32 score elements one recomputed block of the backward may hold
+VJP_SCORE_ELEMENTS = 1 << 27
+
+
+def chunked_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          g: torch.Tensor, *, chunk: int = 1024
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The gradients of :func:`chunked_causal_attention` for ``q, k, v``
+    given the output's gradient ``g``: each query chunk is recomputed and
+    differentiated on its own (``torch.func.vjp``, which composes with the
+    ``torch.func`` transforms), over as many batch rows at once as keep
+    its scores within :data:`VJP_SCORE_ELEMENTS`.  The keys' gradients sum
+    over the chunks from the last to the first in the keys' type, as
+    autograd through :func:`chunked_causal_attention` (and the JAX
+    package's scan transpose) sums them."""
+    b, s, h, _ = q.shape
+    chunk = _attn_chunk(s, chunk)
+    rows = max(1, VJP_SCORE_ELEMENTS // (h * chunk * s))
+    dq, dk, dv = [], [], []
+    for b0 in range(0, b, rows):
+        qb, kb, vb, gb = (x[b0:b0 + rows] for x in (q, k, v, g))
+        dq_b, dk_b, dv_b = [], 0, 0
+        for c0 in reversed(range(0, s, chunk)):
+            end = c0 + chunk
+            _, vjp = torch.func.vjp(
+                lambda q_, k_, v_: _chunk_attention(q_, k_, v_, c0),
+                qb[:, c0:end], kb[:, :end], vb[:, :end])
+            dq_c, dk_c, dv_c = vjp(gb[:, c0:end])
+            dq_b.insert(0, dq_c)
+            pad = (0, 0, 0, 0, 0, s - end)
+            dk_b = dk_b + F.pad(dk_c, pad)
+            dv_b = dv_b + F.pad(dv_c, pad)
+        dq.append(torch.cat(dq_b, dim=1))
+        dk.append(dk_b)
+        dv.append(dv_b)
+    return torch.cat(dq), torch.cat(dk), torch.cat(dv)
+
+
+def attention_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                    positions: torch.Tensor, chunk: int = 1024
+                    ) -> torch.Tensor:
+    """Training attention over the whole sequence: the projections, the
+    flash attention kernel (its backward the chunked recompute, ``chunk``
+    query rows at a time), then ``wo``."""
+    q, k, v = qkv_project(cfg, p, x, positions)
+    return attn_out(flash_attention(q, k, v, chunk), p["wo"])
 
 
 def decode_attention_dense(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,6 +1,8 @@
 """Model facade of the port: one object per architecture config.
 
-Every family the JAX package registers: dense, vlm, audio and moe (a
+``loss`` is the training objective (the chunked cross-entropy plus the
+weighted MoE aux loss), differentiable through the flash attention and SSD
+scan kernels.  Every family the JAX package registers: dense, vlm, audio and moe (a
 contiguous KV cache, written in place by ``decode_step``), ssm (the
 recurrent state, stepped out of place) and hybrid (both: the Mamba2 state
 out of place, the shared block's KV in place).  The paged ``ServeEngine``
@@ -25,6 +27,10 @@ Params = Dict[str, Any]
 @dataclass
 class Model:
     cfg: ArchConfig
+    remat: bool = True
+    attn_chunk: int = 1024
+    loss_chunk: int = 512
+    moe_aux_weight: float = 0.01
 
     def __post_init__(self):
         T.check_servable(self.cfg)
@@ -32,6 +38,21 @@ class Model:
     def init(self, generator: torch.Generator) -> Params:
         """Random weights from a seeded generator, on its device."""
         return T.init_transformer(self.cfg, generator)
+
+    # -- training ---------------------------------------------------------
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``batch``: ``tokens``, ``targets`` and, for the VLM stub,
+        ``frontend_embed``.  Returns (total, ``{"xent", "moe_aux"}``), f32
+        scalars on the batch's device; no host sync."""
+        s = batch["tokens"].shape[1]
+        h, aux = T.forward(self.cfg, params, batch["tokens"],
+                           batch.get("frontend_embed"), remat=self.remat,
+                           attn_chunk=min(self.attn_chunk, s))
+        xent = T.token_loss(self.cfg, params, h, batch["targets"],
+                            loss_chunk=min(self.loss_chunk, s))
+        return xent + self.moe_aux_weight * aux, {"xent": xent,
+                                                  "moe_aux": aux}
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 frontend_embed: Optional[torch.Tensor] = None,

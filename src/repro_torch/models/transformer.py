@@ -1,8 +1,9 @@
-"""Parameters, embedding and output head of the port's families.
+"""Parameters, embedding, output head, training forward and loss of the
+port's families.
 
-Counterparts of ``init_transformer``, ``embed_tokens`` and ``lm_head`` in
-``repro/models/transformer.py``, for every family the JAX package
-registers: dense, vlm (stub frontend), audio (several codebooks) and moe
+Counterparts of ``init_transformer``, ``embed_tokens``, ``lm_head``,
+``forward`` and ``token_loss`` in ``repro/models/transformer.py``, for
+every family the JAX package registers: dense, vlm (stub frontend), audio (several codebooks) and moe
 (attention + the MoE FFN), ssm (Mamba2) and hybrid (a Mamba2 backbone and
 ONE weight-shared attention + MLP block, ``shared``, applied every
 ``attn_every`` layers on ``concat([h, h0])``).  Parameters are a plain dict
@@ -11,14 +12,14 @@ of tensors in the JAX package's layout, layers stacked ``[L, ...]``.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.moe import init_moe
-from repro_torch.models.ssm import init_mamba
+from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.models.ssm import init_mamba, mamba_block
 
 Params = Dict[str, Any]
 
@@ -168,7 +169,8 @@ def embed_tokens(cfg: ArchConfig, p: Params, tokens: torch.Tensor,
         if n > h.shape[1]:
             raise ValueError(f"frontend_embed covers {n} positions of a "
                              f"{h.shape[1]}-token sequence")
-        h[:, :n] = frontend_embed.to(h.dtype) @ p["frontend_proj"]
+        fe = frontend_embed.to(h.dtype) @ p["frontend_proj"]
+        h = torch.cat([fe, h[:, n:]], dim=1)
     return h
 
 
@@ -182,3 +184,132 @@ def lm_head(cfg: ArchConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     if cfg.num_codebooks > 1:
         logits = logits.unflatten(-1, (cfg.num_codebooks, cfg.vocab_size))
     return logits
+
+
+# ---------------------------------------------------------------------------
+# forward (training)
+# ---------------------------------------------------------------------------
+
+def _attn_mlp_layer(cfg: ArchConfig, lp: Params, h: torch.Tensor,
+                    positions: torch.Tensor, attn_chunk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One attention + FFN layer; returns (h, the MoE aux loss or 0)."""
+    h = h + L.attention_block(cfg, lp["attn"],
+                              L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                              positions, attn_chunk)
+    x = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+    if cfg.is_moe:
+        m, aux = moe_block(cfg, lp["moe"], x)
+    else:
+        m, aux = L.mlp_block(cfg, lp["mlp"], x), h.new_zeros((),
+                                                             dtype=torch.float32)
+    return h + m, aux
+
+
+def _mamba_layer(cfg: ArchConfig, lp: Params, h: torch.Tensor
+                 ) -> torch.Tensor:
+    return h + mamba_block(cfg, lp["mamba"],
+                           L.rms_norm(h, lp["ln"], cfg.norm_eps))
+
+
+def _shared_attn_block(cfg: ArchConfig, sp: Params, h: torch.Tensor,
+                       h0: torch.Tensor, positions: torch.Tensor,
+                       attn_chunk: int) -> torch.Tensor:
+    """The hybrid's shared block on ``concat([h, h0]) @ w_concat``."""
+    x = torch.cat([h, h0], dim=-1) @ sp["w_concat"]
+    x = x + L.attention_block(cfg, sp["attn"],
+                              L.rms_norm(x, sp["ln1"], cfg.norm_eps),
+                              positions, attn_chunk)
+    m = L.mlp_block(cfg, sp["mlp"], L.rms_norm(x, sp["ln2"], cfg.norm_eps))
+    return h + x + m
+
+
+def forward(cfg: ArchConfig, p: Params, tokens: torch.Tensor,
+            frontend_embed: Optional[torch.Tensor] = None, *,
+            remat: bool = True, attn_chunk: int = 1024
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: (final-normed hidden ``[b, s, d]``, the MoE
+    aux loss summed over layers, f32).
+
+    With ``remat`` each layer is recomputed in the backward instead of
+    keeping its activations (:func:`layers.remat`, ``jax.checkpoint`` in
+    the JAX package): for the hybrid each group of ``attn_every`` Mamba2
+    layers with the shared block after it, and not the ``num_layers %
+    attn_every`` tail layers, as there.  The attention and Mamba2 blocks
+    therefore launch their kernels twice per step with remat (forward and
+    recompute), once without.
+    """
+    check_servable(cfg)
+    h = embed_tokens(cfg, p, tokens, frontend_embed)
+    positions = torch.arange(h.shape[1], device=h.device)
+    aux = h.new_zeros((), dtype=torch.float32)
+    wrap = L.remat if remat else (lambda fn, *args: fn(*args))
+    n = cfg.num_layers
+    layers = L.unstack_layers(p["layers"], n)
+    if cfg.family in ATTN_FAMILIES:
+        for lp in layers:
+            h, a = wrap(lambda h_, lp_: _attn_mlp_layer(
+                cfg, lp_, h_, positions, attn_chunk), h, lp)
+            aux = aux + a
+    elif cfg.family == "ssm":
+        for lp in layers:
+            h = wrap(lambda h_, lp_: _mamba_layer(cfg, lp_, h_), h, lp)
+    else:                                               # hybrid
+        h0, k = h, cfg.attn_every
+        n_groups = n // k
+
+        def group(h_: torch.Tensor, glp: list) -> torch.Tensor:
+            for lp in glp:
+                h_ = _mamba_layer(cfg, lp, h_)
+            return _shared_attn_block(cfg, p["shared"], h_, h0, positions,
+                                      attn_chunk)
+
+        for g in range(n_groups):
+            h = wrap(group, h, layers[g * k:(g + 1) * k])
+        for lp in layers[n_groups * k:]:
+            h = _mamba_layer(cfg, lp, h)
+    return L.rms_norm(h, p["final_norm"], cfg.norm_eps), aux
+
+
+# ---------------------------------------------------------------------------
+# loss (sequence-chunked cross-entropy: the f32 logits of one chunk at a
+# time)
+# ---------------------------------------------------------------------------
+
+def _chunk_nll(cfg: ArchConfig, p: Params, h_c: torch.Tensor,
+               t_c: torch.Tensor, v_c: torch.Tensor) -> torch.Tensor:
+    """The summed next-token NLL of one chunk (``v_c`` masks positions;
+    several codebooks averaged)."""
+    logits = lm_head(cfg, p, h_c).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t_c[..., None].long())[..., 0]
+    nll = logz - gold                                   # [b, c] or [b, c, cb]
+    if cfg.num_codebooks > 1:
+        nll = nll.mean(-1)
+    return torch.sum(nll * v_c)
+
+
+def token_loss(cfg: ArchConfig, p: Params, h: torch.Tensor,
+               targets: torch.Tensor, *, loss_chunk: int = 512
+               ) -> torch.Tensor:
+    """Mean next-token cross-entropy of h ``[b, s, d]`` against targets
+    ``[b, s]`` (``[b, s, cb]``), ``loss_chunk`` positions at a time, each
+    chunk's f32 logits recomputed in the backward (:func:`layers.remat`)
+    so the logits of all chunks never live at once.  The VLM stub's
+    image-prefix positions carry no loss."""
+    b, s, _ = h.shape
+    loss_chunk = min(loss_chunk, s)
+    if s % loss_chunk:
+        raise ValueError(f"loss_chunk {loss_chunk} does not divide the "
+                         f"sequence length {s}")
+    valid = torch.ones(s, dtype=torch.float32, device=h.device)
+    if cfg.frontend == "vlm_stub":
+        valid = (torch.arange(s, device=h.device)
+                 >= cfg.frontend_tokens).float()
+    total = h.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, s, loss_chunk):
+        sl = slice(c0, c0 + loss_chunk)
+        total = total + L.remat(
+            lambda h_c, t_c, v_c: _chunk_nll(cfg, p, h_c, t_c, v_c),
+            h[:, sl], targets[:, sl], valid[sl])
+    return total / torch.clamp(valid.sum() * b, min=1.0)

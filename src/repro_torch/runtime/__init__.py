@@ -1,5 +1,7 @@
-"""Serving runtime of the port: the single-device engine and the
-scheduler above it."""
+"""Runtime of the port: the single-device serving engine and the
+scheduler above it; training's step builder (``runtime.train_loop``) and
+``FaultTolerantTrainer`` (``runtime.fault``) are imported from their
+modules."""
 
 from repro_torch.runtime.scheduler import (
     AdmissionDenied,

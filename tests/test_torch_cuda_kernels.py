@@ -567,4 +567,138 @@ def test_moe_engine_on_the_card_matches_the_cpu(gen, name, attn_impl):
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to(v, dev) for v in tree))
+    return None if tree is None else tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels under autograd
+# ---------------------------------------------------------------------------
+
+def _grads(out, inputs, g):
+    return torch.autograd.grad(out, inputs, g)
+
+
+def assert_grad_close(got, want):
+    """A gradient is a sum over the batch and sequence whose terms are as
+    large as its largest element, so its order noise is held to 1e-5 of
+    that, beside TOL's relative term (one bf16 ulp)."""
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=TOL[want.dtype]["rtol"],
+        atol=1e-5 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [1023, 2048])
+def test_flash_attention_gradients_on_the_card(gen, s, dtype):
+    """The K2 Function's gradients (the kernel forward, the chunked
+    recompute backward) against autograd through the plain chunked
+    attention, at qwen2-1.5b's widths; the forward is one launch."""
+    from repro_torch.models.layers import chunked_causal_attention
+
+    q, k, v, g = (torch.randn(1, s, n, 128, generator=gen, device="cuda")
+                  .to(dtype).requires_grad_() for n in (12, 2, 2, 12))
+    before = flash_ops.LAUNCHES[flash_ops.NAME]
+    got = _grads(flash_ops.flash_attention(q, k, v, 1024), (q, k, v), g)
+    assert flash_ops.LAUNCHES[flash_ops.NAME] == before + 1
+    want = _grads(chunked_causal_attention(q, k, v, chunk=1024), (q, k, v),
+                  g)
+    for a, b in zip(got, want):
+        assert_grad_close(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_scan_gradients_on_the_card(gen, dtype):
+    """The K4 Function's gradients for x, dt, A, B, C against autograd
+    through ``ssd_scan_ref``, at mamba2-2.7b's widths; dt and A get f32
+    gradients."""
+    args = [a.requires_grad_() for a in ssd_case(gen, 1, 2048, 80, 64, 128,
+                                                  dtype)]
+    y, state = ssd_ops.ssd_scan(*args)
+    gy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+    got = _grads(y, args, gy)
+    want = _grads(ssd_scan_ref(*args)[0], args, gy)
+    assert got[1].dtype == got[2].dtype == torch.float32
+    for a, b in zip(got, want):
+        assert_grad_close(a, b)
+
+
+def test_vmap_rules_launch_once_and_match_two_plain_calls(gen):
+    from repro_torch.models.layers import chunked_causal_attention
+
+    q, k, v = (torch.randn(2, 1, 1023, n, 128, generator=gen, device="cuda")
+               for n in (12, 2, 2))
+    before = flash_ops.LAUNCHES[flash_ops.NAME]
+    out = torch.func.vmap(flash_ops.flash_attention)(q, k, v)
+    assert flash_ops.LAUNCHES[flash_ops.NAME] == before + 1
+    for i in range(2):
+        torch.testing.assert_close(out[i], flash_attention_ref(q[i], k[i],
+                                                               v[i]),
+                                   **TOL[torch.float32])
+    g = torch.randn_like(q)
+
+    def f(q_, k_, v_, g_):
+        return (flash_ops.flash_attention(q_, k_, v_) * g_).sum()
+    got = torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2)))(q, k, v, g)
+    for i in range(2):
+        qi, ki, vi = (x[i].clone().requires_grad_() for x in (q, k, v))
+        want = _grads(chunked_causal_attention(qi, ki, vi), (qi, ki, vi),
+                      g[i])
+        for a, b in zip(got, want):
+            assert_grad_close(a[i], b)
+    x, dt, A, B, C = ssd_case(gen, 1, 1000, 80, 64, 128, torch.float32)
+    xs = torch.stack([x, 0.5 * x])
+    before = ssd_ops.LAUNCHES[ssd_ops.NAME]
+    y, st = torch.func.vmap(ssd_ops.ssd_scan,
+                            in_dims=(0, None, None, None, None))(
+        xs, dt, A, B, C)
+    assert ssd_ops.LAUNCHES[ssd_ops.NAME] == before + 1
+    for i in range(2):
+        yi, si = ssd_scan_ref(xs[i], dt, A, B, C)
+        torch.testing.assert_close(y[i], yi, **TOL[torch.float32])
+        torch.testing.assert_close(st[i], si, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("name", ["paper-agentic", "mamba2-2.7b"])
+def test_train_steps_on_the_card_match_the_cpu(gen, name):
+    """Three float32 steps of build_train_step (AdamW, clip, accum 2) on
+    the card and on the CPU from one state: losses and grad norms within
+    1e-4 relative, parameters within 2 * lr per step (AdamW's first step is
+    ±lr per element)."""
+    from repro_torch.data import SyntheticLMPipeline
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import build_train_step, \
+        init_train_state
+
+    cfg = dataclasses.replace(reduced(get_config(name), d_model=128),
+                              dtype="float32")
+    if cfg.family == "ssm":
+        # the SSD scan kernel takes N and P of 64 or 128
+        cfg = dataclasses.replace(cfg, ssm_state=64, ssm_head_dim=64)
+    model = Model(cfg, attn_chunk=32, loss_chunk=32)
+    opt = adamw(1e-3)
+    step = build_train_step(model, opt, accum_steps=2, clip_norm=1.0)
+    state = init_train_state(model, opt, torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        st = _to(state, dev) if dev == "cuda" else state
+        data = SyntheticLMPipeline(cfg, batch=4, seq=64, seed=1, device=dev)
+        log = []
+        for _ in range(3):
+            st, met = step(st, data.next())
+            log.append([float(met["loss"]), float(met["grad_norm"])])
+        runs[dev] = (log, _to(st.params, "cpu"))
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for a, b in zip(_leaves(runs["cuda"][1]), _leaves(runs["cpu"][1])):
+        torch.testing.assert_close(a, b, rtol=0, atol=3 * 2 * 1e-3)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
