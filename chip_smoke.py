@@ -142,9 +142,10 @@ Phases (any failure exits non-zero; nothing is caught into success):
    last below the first; K2/K4 launches equal their calls, the remat
    recompute's included (2 per layer and step); step ms p50, tokens/s,
    the model-FLOP share of the bf16 peak, init and step peaks, and one
-   profiled step's device-busy share, K2/K4 kernel ms and plain backward
-   ms; then ``python -m repro_torch.launch.train --arch paper-agentic
-   --steps 20`` as a subprocess;
+   profiled step's device-busy ms (its share taken of the step p50, since
+   the profiler stretches the profiled step's wall time), K2/K4 kernel ms
+   and plain backward ms; then ``python -m repro_torch.launch.train
+   --arch paper-agentic --steps 20`` as a subprocess;
 10. the timing of each kernel at the main paths' shapes beside its plain
    version, the nearest single PyTorch call where one exists, the card's
    bound and the time of each kernel's earlier design (from PERF.md: K2
@@ -2503,10 +2504,12 @@ def train_parity() -> None:
     (plain): ``paper-agentic`` and mamba2-2.7b's widths at 4 layers, each 3
     steps of ``build_train_step`` (AdamW, clip 1.0, accum_steps 2) from one
     state on the same batches: the losses and grad norms within 1e-4
-    relative, the parameters within ``2 * lr`` per step (AdamW's first
-    step is ±lr per element, ``m̂/√v̂ = sign(g)``, so an element whose
-    gradient lies within the two devices' rounding of zero may move the
-    other way; the mean difference is printed beside it).  Then on the
+    relative, the parameters within 1e-5 of each leaf's largest magnitude
+    but for at most 0.1% of all elements, which are held within ``2 * lr``
+    (AdamW's first step is ±lr per element, ``m̂/√v̂ = sign(g)``, so an
+    element whose gradient lies within the two devices' rounding of zero
+    may move the other way; a missing, sign-flipped or undecayed step moves
+    far more elements; the mean difference is printed beside it).  Then on the
     card: a ``FaultTolerantTrainer`` run whose injected NaN rolls back to a
     bit-identical committed state; a checkpoint at step 4 restored into a
     new trainer that replays the exact stream (the same batches, losses
@@ -2549,19 +2552,23 @@ def train_parity() -> None:
                          time.perf_counter() - t0)
             del st
         got, want = np.array(runs["cuda"][0]), np.array(runs["cpu"][0])
-        diffs = [(a - b_).abs() for a, b_ in zip(_leaves(runs["cuda"][1]),
-                                                 _leaves(runs["cpu"][1]))]
+        pairs = list(zip(_leaves(runs["cuda"][1]), _leaves(runs["cpu"][1])))
+        diffs = [(a - b_).abs() for a, b_ in pairs]
         worst = max(float(d.max()) for d in diffs)
-        mean = (sum(float(d.sum()) for d in diffs)
-                / sum(d.numel() for d in diffs))
+        n = sum(d.numel() for d in diffs)
+        mean = sum(float(d.sum()) for d in diffs) / n
+        flipped = sum(int((d > 1e-5 * float(w.abs().max())).sum())
+                      for d, (_, w) in zip(diffs, pairs))
         rel = float(np.max(np.abs(got - want) / np.abs(want)))
         log(f"{name} widths, {cfg.num_layers} layers, 3 train steps (AdamW "
             f"lr {lr}, clip 1.0, accum 2, b={b} s={s}): losses and grad "
             f"norms card {got.tolist()} cpu {want.tolist()}, max rel "
-            f"{rel:.3g} (tol 1e-4); params max |cuda - cpu| {worst:.3g} "
-            f"(tol {3 * 2 * lr:.3g} = 2 lr per step), mean {mean:.3g}; "
-            f"cpu {runs['cpu'][2]:.1f} s, card {runs['cuda'][2]:.1f} s")
-        if rel > 1e-4 or worst > 3 * 2 * lr:
+            f"{rel:.3g} (tol 1e-4); params {flipped} of {n} elements beyond "
+            f"1e-5 of their leaf's largest magnitude (tol {n // 1000}), max "
+            f"|cuda - cpu| {worst:.3g} (tol {2 * lr:.3g} = 2 lr), mean "
+            f"{mean:.3g}; cpu {runs['cpu'][2]:.1f} s, card "
+            f"{runs['cuda'][2]:.1f} s")
+        if rel > 1e-4 or flipped > n // 1000 or worst > 2 * lr:
             fail(f"{name}: training on the card disagrees with the CPU")
 
     # the branch semantics of training, on the card (paper-agentic f32)
@@ -2710,11 +2717,14 @@ def counted_train_calls():
             setattr(mod, name, saved[name])
 
 
-def profile_train_step(run_step) -> dict:
+def profile_train_step(run_step, step_ms: float) -> dict:
     """One training step under torch.profiler (after one traced warm-up
-    step, dropped): device-busy share of the step's wall time, K2's and
-    K4's kernel ms, and the device ms under the two Functions' backward
-    labels (the plain recompute backward)."""
+    step, dropped): its device-busy ms, K2's and K4's kernel ms, and the
+    device ms under the two Functions' backward labels (the plain
+    recompute backward).  The busy share divides the device-busy ms by
+    ``step_ms``, an unprofiled step's wall time: the profiler's cost per
+    host op stretches the profiled step's own wall time (a step of many
+    small ops the most) but not the kernels' device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2759,10 +2769,10 @@ def profile_train_step(run_step) -> dict:
             k4 += ms
     if not busy:
         log("profile: device time not measured (no CUDA events)")
-        return {"wall_ms": wall_ms, "device_busy_share": None}
-    return {"wall_ms": round(wall_ms, 1),
+        return {"profiled_wall_ms": wall_ms, "device_busy_share": None}
+    return {"profiled_wall_ms": round(wall_ms, 1),
             "device_busy_ms": round(busy, 1),
-            "device_busy_share": round(busy / wall_ms, 4),
+            "device_busy_share": round(busy / step_ms, 4),
             "k2_fwd_ms": round(k2, 2), "k4_fwd_ms": round(k4, 2),
             "k2_plain_bwd_ms": round(labels["flash_attention.backward"], 2)
             or None,
@@ -2866,8 +2876,8 @@ def phase_train(seed: int = 0) -> dict:
                                    / (p50 / 1e3) / PEAK_BF16, 4))
         n_attn = cfg.num_layers if cfg.num_heads else 0
         n_ssd = cfg.num_layers if cfg.family == "ssm" else 0
-        res["profile"] = profile_train_step(lambda: (tr.run(1),
-                                                     torch.cuda.synchronize()))
+        res["profile"] = profile_train_step(
+            lambda: (tr.run(1), torch.cuda.synchronize()), p50)
         log(f"{name} b={b} s={s}: {json.dumps(res)} ({card})")
         if (not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS - 1
                 or not losses[-1] < losses[0]):

@@ -19,21 +19,24 @@ terms keeps its rounding relative to itself, and the exponential damps it.
 The segment sums exist only on and below the diagonal (above it the
 exponent would be positive and could overflow).  The wrapper in ``ops.py``
 runs this for CPU tensors; on the card it is what the CUDA kernel is held
-against.
+against, and ``repro_torch.models.ssm`` exports it as the port's
+``ssd_chunked``, which takes the same optional ``initial_state``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                 B: torch.Tensor, C: torch.Tensor, chunk: int = 128
+                 B: torch.Tensor, C: torch.Tensor, chunk: int = 128,
+                 initial_state: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [b,s,H,P]; dt [b,s,H] (post-softplus); A [H]; B/C [b,s,N].
+    """x [b,s,H,P]; dt [b,s,H] (post-softplus); A [H]; B/C [b,s,N];
+    initial_state [b,H,N,P] (zero if ``None``).
 
     Returns (y [b,s,H,P] in x's dtype, final state [b,H,N,P] f32).
     """
@@ -72,7 +75,8 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     S = torch.einsum("bckh,bckn,bckhp->bchnp", wk, Br, xr)  # [b,nc,H,N,P]
     chunk_decay = torch.exp(cum[:, :, -1, :])               # [b,nc,H]
     in_decay = torch.exp(cum)                               # [b,nc,Q,H]
-    h = torch.zeros((b, H, N, P), dtype=torch.float32, device=x.device)
+    h = (torch.zeros((b, H, N, P), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
     y_off = []
     for c in range(nc):
         y_off.append(torch.einsum("bqn,bhnp->bqhp", Cr[:, c], h)

@@ -3,8 +3,9 @@ and prefill), conv, one-token state update, init.
 
 Counterparts of ``repro/models/ssm.py``.  The block's scan is the SSD scan
 kernel (:func:`repro_torch.kernels.ssd_scan.ssd_scan`, with a recompute
-backward); :func:`ssd_chunked` is the JAX package's plain chunked scan,
-with its type casts and an initial state.
+backward); ``ssd_chunked`` is the port's one plain chunked scan,
+:func:`repro_torch.kernels.ssd_scan.ref.ssd_scan_ref`, with its optional
+initial state.
 
 Layouts are the JAX package's:
 
@@ -23,63 +24,17 @@ change the state of every branch that shares it.
 
 from __future__ import annotations
 
-import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref as ssd_chunked
 from repro_torch.models.layers import dense_init, gated_rms_norm
 
 Params = Dict[str, Any]
-
-
-def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                B: torch.Tensor, C: torch.Tensor, chunk: int,
-                initial_state: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The JAX package's chunked SSD scan in plain torch: chunks of
-    ``chunk`` (``gcd(chunk, s)`` where it does not divide ``s``), the
-    decays as differences of the in-chunk cumulative sum, ``W``, ``wk``,
-    the in-chunk decay and the carried state cast to ``x``'s type on the
-    way, as there.  Returns (y [b,s,H,P], final state [b,H,N,P] f32)."""
-    b, s, H, Pd = x.shape
-    N = B.shape[-1]
-    chunk = min(chunk, s)
-    if s % chunk:
-        chunk = math.gcd(chunk, s)
-    nc = s // chunk
-    xr = x.reshape(b, nc, chunk, H, Pd)
-    dtr = dt.reshape(b, nc, chunk, H).float()
-    Br = B.reshape(b, nc, chunk, N)
-    Cr = C.reshape(b, nc, chunk, N)
-    cum = torch.cumsum(dtr * A.float(), dim=2)              # [b,nc,q,H]
-
-    # intra-chunk (dual, attention-like) form
-    cb = torch.einsum("bcqn,bckn->bcqk", Cr.float(), Br.float())
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [b,nc,q,k,H]
-    causal = torch.ones(chunk, chunk, dtype=torch.bool,
-                        device=x.device).tril()[None, None, :, :, None]
-    Lm = torch.where(causal, torch.exp(diff), 0.0)
-    W = (cb[..., None] * Lm * dtr[:, :, None, :, :]).to(x.dtype)
-    y_diag = torch.einsum("bcqkh,bckhp->bcqhp", W, xr)
-
-    # chunk boundary states and the carried recurrence
-    wk = (dtr * torch.exp(cum[:, :, -1:, :] - cum)).to(x.dtype)
-    S = torch.einsum("bckh,bckn,bckhp->bchnp", wk, Br, xr)  # [b,nc,H,N,P]
-    chunk_decay = torch.exp(cum[:, :, -1, :])               # [b,nc,H]
-    in_decay = torch.exp(cum).to(x.dtype)                   # [b,nc,q,H]
-    h = (torch.zeros((b, H, N, Pd), dtype=torch.float32, device=x.device)
-         if initial_state is None else initial_state.float())
-    y_off = []
-    for c in range(nc):
-        y_off.append(torch.einsum("bqn,bhnp,bqh->bqhp", Cr[:, c],
-                                  h.to(x.dtype), in_decay[:, c]))
-        h = chunk_decay[:, c, :, None, None] * h + S[:, c].float()
-    y = y_diag + torch.stack(y_off, dim=1)
-    return y.reshape(b, s, H, Pd), h
 
 
 def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -3,7 +3,7 @@ leaf-by-leaf step the train loop takes."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -25,7 +25,7 @@ class Optimizer(NamedTuple):
     #: step(grads, state, params) -> (new_params, new_state): ``update``
     #: and :func:`apply_updates` in one pass, each leaf's f32 update
     #: dropped as soon as it is applied
-    step: Optional[Callable[[Any, Any, Any], Any]] = None
+    step: Callable[[Any, Any, Any], Any]
 
 
 def map_leaves(fn: Callable[..., Tuple], *trees: Any) -> List[Any]:

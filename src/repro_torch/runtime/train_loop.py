@@ -21,7 +21,6 @@ import torch.utils._pytree as pytree
 from repro_torch.models.model import Model
 from repro_torch.optim import (
     Optimizer,
-    apply_updates,
     clip_by_global_norm,
     compressed_gradients,
 )
@@ -114,13 +113,8 @@ def build_train_step(
         gnorm = torch.zeros_like(loss)
         if clip_norm is not None:
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        if optimizer.step is not None:
-            params, opt_state = optimizer.step(grads, state.opt_state,
-                                               state.params)
-        else:
-            updates, opt_state = optimizer.update(grads, state.opt_state,
-                                                  state.params)
-            params = apply_updates(state.params, updates)
+        params, opt_state = optimizer.step(grads, state.opt_state,
+                                           state.params)
         return (TrainState(params=params, opt_state=opt_state, ef=ef,
                            step=state.step + 1),
                 {"loss": loss, "grad_norm": gnorm, **metrics})
