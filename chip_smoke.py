@@ -146,6 +146,23 @@ Phases (any failure exits non-zero; nothing is caught into success):
    the profiler stretches the profiled step's wall time), K2/K4 kernel ms
    and plain backward ms; then ``python -m repro_torch.launch.train
    --arch paper-agentic --steps 20`` as a subprocess;
+14. (run before 10, after 13) tensor-parallel serving with both shards of
+   a ``tp=2`` engine on cuda:0, so one card holds the shard-local math,
+   the kernels at the shards' shapes and the sums between shards: (a) the
+   hard gate, ``paper-agentic`` at 2 layers in f32 through the reference
+   tp tests' cycle (decode, fork 2, 3 steps, a 4x4 verify, commit, a
+   step) at tp 2 on the card, tp 1 on the card and tp 2 on the CPU, on
+   the fused, ``"ref"`` and int8 paths (identical tokens, verify rows and
+   CoW counts, verify logits within ``TP_F32_TOL``), then a reduced MoE
+   config (identical expert ids at every routing call); (b)
+   ``qwen2-1.5b`` at full width and depth in bf16 at tp 2 through phase
+   3's load (fused, then 4 ``"ref"`` steps): prefill ms, step p50,
+   tokens/s, busy share, 56 paged walks a step, the first step's logits
+   within ``TP_BF16_REL_RMS`` of tp 1's; (c) ``qwen3-moe-235b-a22b`` at
+   full width cut to ``TP_MOE_LAYERS`` layers at tp 2 (64 experts a
+   shard) through phase 11's load: the expert-parallel block against one
+   device on one input (identical ids, output within ``TOL``), the two
+   shards' ids at the first routing call, step p50 and busy share;
 10. the timing of each kernel at the main paths' shapes beside its plain
    version, the nearest single PyTorch call where one exists, the card's
    bound and the time of each kernel's earlier design (from PERF.md: K2
@@ -155,9 +172,13 @@ Phases (any failure exits non-zero; nothing is caught into success):
    hd 112 beside SDPA, K1 at qwen3-moe-235b-a22b's g 16 decode) and
    phase 13's (K2 at b 4 × s 2048 and K4 at b 2 × s 2048: the kernel
    forward beside the plain forward, the plain recompute backward and, for
-   K2, SDPA's forward + backward); then the ``{"kernels": [...]}`` line
-   (K1-K4; launches summed over the main paths and phases 11, 12 and 13),
-   the card line and the final ``{"ok": true, ...}`` line.
+   K2, SDPA's forward + backward) and phase 14's per-shard shapes (K1
+   and K3 at qwen2-1.5b's tp 2 decode, kv 1 and g 6; K2 at h 6 over kv 1
+   beside SDPA; K1 at qwen3-moe-235b-a22b's tp 2 decode, kv 2 and g 16);
+   then the ``{"kernels": [...]}`` line (K1-K4, launches summed over the
+   main paths and phases 11, 12 and 13, then the per-shard rows with
+   phase 14's launches), the card line and the final ``{"ok": true,
+   ...}`` line.
 
 Every path's kernel launch counters are zeroed just before it runs and
 read just after; a kernel of the path that never launched fails the run.
@@ -597,29 +618,30 @@ def zero_launches() -> None:
 @contextlib.contextmanager
 def counted_calls():
     """Count the engine's calls of the two paged-attention wrappers and the
-    prefill's calls of flash attention (the names serve_loop and the
-    model's decode module bound at import), to hold launches to one per
-    call."""
+    prefills' calls of flash attention (the engine's dense prefill and the
+    model's: the names serve_loop and the decode module bound at import),
+    to hold launches to one per call."""
     from repro_torch.models import decode
     from repro_torch.runtime import serve_loop
 
-    sites = {"paged_chunk_attention": serve_loop,
-             "paged_attention": serve_loop, "flash_attention": decode}
-    calls = {name: 0 for name in sites}
-    saved = {name: getattr(mod, name) for name, mod in sites.items()}
+    sites = (("paged_chunk_attention", serve_loop),
+             ("paged_attention", serve_loop),
+             ("flash_attention", serve_loop), ("flash_attention", decode))
+    calls = {name: 0 for name, _ in sites}
+    saved = [(name, mod, getattr(mod, name)) for name, mod in sites]
 
-    def counting(name):
+    def counting(name, fn):
         def call(*args, **kwargs):
             calls[name] += 1
-            return saved[name](*args, **kwargs)
+            return fn(*args, **kwargs)
         return call
-    for name, mod in sites.items():
-        setattr(mod, name, counting(name))
+    for name, mod, fn in saved:
+        setattr(mod, name, counting(name, fn))
     try:
         yield calls
     finally:
-        for name, mod in sites.items():
-            setattr(mod, name, saved[name])
+        for name, mod, fn in saved:
+            setattr(mod, name, fn)
 
 
 def launches_match_calls(launches: dict, calls: dict) -> None:
@@ -634,8 +656,17 @@ def launches_match_calls(launches: dict, calls: dict) -> None:
 DENSE_PROMPTS = (1024, 768, 128, 256, 384, 512, 640, 896)
 
 
+def dense_prompts(cfg, lens, rng) -> list:
+    """Phase 3's prompts of ``lens`` tokens drawn from ``rng``; the second
+    shares its first 512 tokens with the first."""
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    prompts[1][:512] = prompts[0][:512]        # a shared 512-token head
+    return prompts
+
+
 def serve_dense(model, params, *, attn_impl: str, steps: int,
-                lens=DENSE_PROMPTS, seed: int = 0) -> dict:
+                lens=DENSE_PROMPTS, seed: int = 0,
+                tp: int | None = None) -> dict:
     """One run of a dense load through ServeEngine (phase 3; phase 11 with
     4 prompts): page 16, prefix cache on; the second prompt shares 512
     tokens with the first, so one suffix prefill runs through K1; 4
@@ -646,17 +677,18 @@ def serve_dense(model, params, *, attn_impl: str, steps: int,
     step must launch the paged walk once per layer by the wrappers'
     counters, the tracer must see every one of those launches run on the
     card (a window that lost events is traced again), and no split combine
-    kernel may run."""
+    kernel may run.  With ``tp`` the engine runs ``tp`` shards on
+    cuda:0 (phase 14), each layer's walk once per shard."""
     from repro_torch.runtime import ServeEngine
 
     cfg = model.cfg
     legacy = attn_impl == "ref"
     eng = ServeEngine(model, params, page_size=16, num_pages=2048,
                       max_pages_per_seq=128, prefix_cache=True,
-                      attn_impl=attn_impl)
+                      attn_impl=attn_impl, tp=tp,
+                      device="cuda:0" if tp else None)
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
-    prompts[1][:512] = prompts[0][:512]        # a shared 512-token head
+    prompts = dense_prompts(cfg, lens, rng)
 
     zero_launches()
     with counted_calls() as calls:
@@ -729,15 +761,16 @@ def serve_dense(model, params, *, attn_impl: str, steps: int,
     if not all(launches[k] for k in needed):
         fail(f"a kernel of the path never launched: {launches}")
     launches_match_calls(launches, calls)
-    walk_gate(profile, cfg.num_layers)
+    walk_gate(profile, cfg.num_layers * eng.tp)
     decode_p50 = statistics.median(step_ms)
     busy = (None if profile.get("idle_share") is None
             else round(1 - profile["idle_share"], 3))
     card = card_line()
-    log(f"{cfg.name} prefill ms per request (prompt {list(lens)}, the "
+    name = cfg.name + (f" tp {eng.tp}" if tp else "")
+    log(f"{name} prefill ms per request (prompt {list(lens)}, the "
         f"second's first 512 tokens cached): "
         f"{[round(x, 3) for x in prefill_ms]} ({card})")
-    log(f"{cfg.name} decode step ms p50 {decode_p50:.3f} (b={n}, {steps} "
+    log(f"{name} decode step ms p50 {decode_p50:.3f} (b={n}, {steps} "
         f"steps, attn_impl={attn_impl!r}), {n / decode_p50 * 1e3:.1f} "
         f"tokens/s, device busy share {busy} ({card})")
     return {
@@ -1232,15 +1265,17 @@ def hybrid_parity() -> None:
 
 
 @contextlib.contextmanager
-def routed_experts():
-    """Record the expert ids the MoE router picks (``[n, K]`` per call)."""
+def routed_experts(limit: int | None = None):
+    """Record the expert ids the MoE router picks (``[n, K]`` per call;
+    only the first ``limit`` calls, so later steps run unsynced)."""
     from repro_torch.models import moe
 
     real, ids = moe.route, []
 
     def recording(*args, **kwargs):
         out = real(*args, **kwargs)
-        ids.append(out[2].tolist())
+        if limit is None or len(ids) < limit:
+            ids.append(out[2].tolist())
         return out
     moe.route = recording
     try:
@@ -2990,6 +3025,368 @@ def train_timing(gen, timer, train: dict) -> None:
     log("training kernel rows: " + json.dumps(rows))
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor-parallel serving, every shard on the one card
+# ---------------------------------------------------------------------------
+
+#: float32 card against float32 (the card's kernels, the CPU's plain
+#: versions, one shard against two): summation order through 2 layers, as
+#: phase 5's states
+TP_F32_TOL = 1e-4
+#: bf16 logits of tp 2 against tp 1 at full depth: each of the 56
+#: sublayers adds its two shards' bf16 partial products where tp 1 rounds
+#: one product, so the hidden states drift by about an ulp (2**-8..2**-7)
+#: a sublayer; a missing or doubled shard is an O(1) error
+TP_BF16_REL_RMS = 2 ** -5
+#: phase 14's verify: four drafts of four tokens
+TP_DRAFTS = [[1, 2, 3, 4], [4, 3, 2, 1], [7, 7, 7, 7], [9, 8, 7, 6]]
+#: phase 14 (c): qwen3-moe-235b-a22b cut to this many of its 94 layers
+TP_MOE_LAYERS = 6
+
+
+@contextlib.contextmanager
+def pass_logits(method: str, limit: int | None = None):
+    """Record, on the host, the logits of the first ``limit`` calls of
+    ``ServeEngine.<method>`` (a verify pass, or a decode step)."""
+    from repro_torch.runtime import ServeEngine
+
+    real, seen = getattr(ServeEngine, method), []
+
+    def recording(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        if isinstance(out, torch.Tensor) and (limit is None
+                                              or len(seen) < limit):
+            seen.append(out.float().cpu())
+        return out
+    setattr(ServeEngine, method, recording)
+    try:
+        yield seen
+    finally:
+        setattr(ServeEngine, method, real)
+
+
+def tp_cycle(eng) -> dict:
+    """``tests/test_distributed.py``'s tp serving cycle: decode, fork 2
+    (lazy CoW: faults on the next step), 3 steps, a 4x4 verify, commit
+    (the sibling invalidated), one step."""
+    sid = eng.add_request([1, 2, 3, 4, 5])
+    toks = [eng.decode([sid])]
+    kids = eng.fork(sid, 2)
+    for _ in range(3):
+        toks.append(eng.decode(kids))
+    rows = eng.spec_verify(kids[1], TP_DRAFTS)
+    parent = eng.commit(kids[0])
+    toks.append(eng.decode([parent]))
+    return {"tokens": toks, "rows": rows,
+            "cow": (eng.cow_dispatches, eng.cow_faults,
+                    eng.cow_inline_steps)}
+
+
+def tp_parity() -> None:
+    """Phase 14 (a), the hard gate: ``paper-agentic`` at 2 layers in f32
+    through the cycle at tp 2 on the card (both shards on cuda:0, kv 2
+    each), at tp 1 on the card and at tp 2 on the CPU, on the fused,
+    ``"ref"`` and int8 paths: identical greedy tokens, verify rows and CoW
+    counts, the verify logits within ``TP_F32_TOL``; then a small MoE
+    config the same way, identical expert ids at every routing call (each
+    of tp 2's two shards routes every row as tp 1 does)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import Model
+    from repro_torch.runtime import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = (("tp2 card", dict(tp=2, device="cuda:0")),
+            ("tp1 card", dict(device="cuda:0")),
+            ("tp2 cpu", dict(tp=2, device="cpu")))
+    geometry = dict(num_pages=64, page_size=4, max_pages_per_seq=16)
+    cfg = dataclasses.replace(get_config("paper-agentic"), dtype="float32",
+                              num_layers=2)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    for path, kw in (("fused", {}), ("ref", {"attn_impl": "ref"}),
+                     ("int8", {"kv_dtype": "int8"})):
+        out = {}
+        for label, ekw in runs:
+            zero_launches()
+            with pass_logits("_chunk_pass") as logits:
+                eng = ServeEngine(model, params, **geometry, **kw, **ekw)
+                out[label] = tp_cycle(eng)
+            out[label]["verify"] = logits[-1]
+            if label == "tp2 card":
+                log(f"tp {eng.tp} over [{', '.join(map(str, eng.devices))}]"
+                    f" ({path} path, kv {eng.shards[0].k_pages.shape[3]} "
+                    "a shard)")
+                launches = launch_counts()
+                step = "paged_attention" if path == "ref" else \
+                    "paged_chunk_attention"
+                if not (launches[step] and launches["flash_attention"]):
+                    fail(f"phase 14 ({path}): a kernel of the tp path never "
+                         f"launched: {launches}")
+        want = out["tp1 card"]
+        for label in ("tp2 card", "tp2 cpu"):
+            got = out[label]
+            err = (got["verify"] - want["verify"]).abs()
+            close = bool(err.le(
+                TP_F32_TOL + TP_F32_TOL * want["verify"].abs()).all())
+            same = (got["tokens"], got["rows"], got["cow"]) == (
+                want["tokens"], want["rows"], want["cow"])
+            log(f"paper-agentic 2 layers f32 {path}: {label} vs tp1 card: "
+                f"tokens, verify rows and CoW counts {got['cow']} identical"
+                f"={same}; verify logits max_abs_err "
+                f"{err.max().item():.3g} (tol {TP_F32_TOL} + {TP_F32_TOL}"
+                f"*|ref|) {'ok' if close else 'MISMATCH'}")
+            if not (same and close):
+                fail(f"phase 14 ({path}): {label} differs from tp 1 on the "
+                     f"card: {got['tokens']} {got['rows']} {got['cow']} vs "
+                     f"{want['tokens']} {want['rows']} {want['cow']}")
+    mcfg = dataclasses.replace(
+        reduced(get_config("qwen3-moe-235b-a22b"), d_model=128),
+        dtype="float32", num_kv_heads=2, num_layers=2)
+    model = Model(mcfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    out = {}
+    for label, ekw in runs:
+        with routed_experts() as ids:
+            eng = ServeEngine(model, params, **geometry, **ekw)
+            out[label] = tp_cycle(eng)
+        out[label]["ids"] = ids
+    one = out["tp1 card"]["ids"]
+    # tp 2 routes each call twice, once per shard, each as tp 1 does
+    pairs = [x for x in one for _ in range(2)]
+    for label in ("tp2 card", "tp2 cpu"):
+        got = out[label]
+        same = got["tokens"] == out["tp1 card"]["tokens"]
+        routed = got["ids"] == pairs
+        log(f"{mcfg.name} reduced (E {mcfg.num_experts}, top "
+            f"{mcfg.experts_per_token}, 2 layers) f32: {label} vs tp1 card: "
+            f"greedy tokens identical={same}, expert ids identical={routed} "
+            f"({len(got['ids'])} routing calls against {len(one)})")
+        if not (same and routed):
+            fail(f"phase 14 MoE: {label} differs from tp 1 on the card")
+
+
+def first_step_logits(model, params, seed: int) -> torch.Tensor:
+    """tp 1's first fused decode step of phase 3's load (the logits of its
+    32 branches), for phase 14 (b) to hold tp 2's against."""
+    from repro_torch.runtime import ServeEngine
+
+    eng = ServeEngine(model, params, page_size=16, num_pages=2048,
+                      max_pages_per_seq=128, prefix_cache=True,
+                      device="cuda:0")
+    prompts = dense_prompts(model.cfg, DENSE_PROMPTS,
+                            np.random.default_rng(seed))
+    roots = [eng.add_request(p) for p in prompts]
+    batch = [b for r in roots for b in eng.fork(r, 4)]
+    with pass_logits("_fused_decode_step", limit=1) as seen:
+        eng.decode(batch)
+    for r in roots:
+        eng.release(r)
+    return seen[0]
+
+
+def phase_tp(seed: int = 0) -> dict:
+    """Phase 14: tensor-parallel serving with both shards on cuda:0 (the
+    script needs one card): (a) the f32 hard gate, (b) qwen2-1.5b
+    at full width and depth in bf16 at tp 2 through phase 3's load on the
+    fused path (its first step's logits against tp 1's) and 4 steps of
+    the ``"ref"`` path, (c) qwen3-moe-235b-a22b at full width, cut to
+    ``TP_MOE_LAYERS`` layers, at tp 2 (64 experts a shard) through phase
+    11's load: the expert-parallel block against one device's on one
+    input (``ep_gate``), and the two shards' ids at the first routing
+    call, with the share of its rows routed as tp 1 routes them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.runtime import ServeEngine
+
+    log("== phase 14: tensor-parallel serving on one card, tp 2 over "
+        "[cuda:0, cuda:0]")
+    card = card_line()
+    tp_parity()
+    out = {}
+
+    # --- (b) qwen2-1.5b at full width and depth, bf16, tp 2 ---------------
+    cfg = get_config("qwen2-1.5b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    one = first_step_logits(model, params, seed)
+    with pass_logits("_fused_decode_step", limit=1) as seen:
+        fused = serve_dense(model, params, attn_impl="auto", steps=32,
+                            seed=seed, tp=2)
+    legacy = serve_dense(model, params, attn_impl="ref", steps=4, seed=seed,
+                         tp=2)
+    two = seen[0]
+    rel = ((two - one).square().mean().sqrt()
+           / one.square().mean().sqrt()).item()
+    agree = (two.argmax(-1) == one.argmax(-1)).float().mean().item()
+    log(f"qwen2-1.5b bf16 first step at tp 2 vs tp 1 (b=32, V "
+        f"{cfg.vocab_size}): relative RMS error {rel:.3g} (gate "
+        f"{TP_BF16_REL_RMS:.3g}), max abs error "
+        f"{(two - one).abs().max().item():.3g} (max |tp1| "
+        f"{one.abs().max().item():.3g}), greedy tokens agree on "
+        f"{agree:.3f} of rows ({card})")
+    if not rel <= TP_BF16_REL_RMS:
+        fail("phase 14 (b): tp 2's first-step logits are not tp 1's within "
+             "bf16 tolerance")
+    fused["first_step_rel_rms"] = rel
+    fused["first_step_argmax_agree"] = agree
+    out["qwen2-1.5b"] = {"fused": fused, "ref": legacy}
+    del params
+    torch.cuda.empty_cache()
+
+    # --- (c) qwen3-moe-235b-a22b, full width, cut depth, tp 2 -------------
+    name = "qwen3-moe-235b-a22b"
+    cfg = dataclasses.replace(get_config(name), num_layers=TP_MOE_LAYERS)
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    prompt = dense_prompts(cfg, FAMILY_PROMPTS,
+                           np.random.default_rng(seed))[0]
+    ep_gate(cfg, params, prompt)
+    with routed_experts(limit=1) as ids1:
+        eng = ServeEngine(model, params, page_size=16, num_pages=256,
+                          max_pages_per_seq=128, device="cuda:0")
+        eng.add_request(prompt)
+    del eng
+    with routed_experts(limit=2) as ids2:
+        res = serve_dense(model, params, attn_impl="auto", steps=16,
+                          lens=FAMILY_PROMPTS, seed=seed, tp=2)
+    same = sum(a == b for a, b in zip(ids2[0], ids1[0])) / len(ids1[0])
+    log(f"{name} ({TP_MOE_LAYERS} of 94 layers) tp 2, the first routing "
+        f"call ({len(ids1[0])} rows x {cfg.experts_per_token}): the two "
+        f"shards' expert ids identical={ids2[0] == ids2[1]}; rows whose ids "
+        f"equal tp 1's {same:.4f} (the router's input already differs by "
+        f"the bf16 sum of the attention over shards); max allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+    if ids2[0] != ids2[1]:
+        fail(f"phase 14 (c): {name}'s shards routed the same rows apart")
+    res["layers"] = TP_MOE_LAYERS
+    res["first_call_rows_as_tp1"] = same
+    res["max_allocated_gb"] = round(torch.cuda.max_memory_allocated() / 1e9,
+                                    2)
+    out[name] = {"fused": res}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_gate(cfg, params, prompt) -> None:
+    """Phase 14 (c)'s hard gate on the expert-parallel branch at full
+    width: layer 0's MoE block on the first prompt's normed embeddings,
+    ``moe_block`` over a 2-way mesh on cuda:0 (64 experts a shard) against
+    one device, on the same input: identical expert ids at every routing
+    call (each shard routes every row), the output within ``TOL``."""
+    from repro_torch.distributed import serving_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import embed_tokens
+
+    lp = L.layer_params(params["layers"], 0)
+    tokens = torch.tensor(prompt, device="cuda")[None]
+    x = L.rms_norm(embed_tokens(cfg, params, tokens), lp["ln2"],
+                   cfg.norm_eps)
+    with routed_experts() as one_ids:
+        one, _ = moe.moe_block(cfg, lp["moe"], x)
+    with routed_experts() as ep_ids:
+        ep, _ = moe.moe_block(cfg, lp["moe"], x, tp_axis="tp",
+                              mesh=serving_mesh(2, ["cuda:0"] * 2))
+    c = compare(ep, one)
+    routed = ep_ids == one_ids * 2
+    log(f"{cfg.name} layer 0 MoE ({x.shape[1]} rows, E {cfg.num_experts}, "
+        f"top {cfg.experts_per_token}, bf16): expert-parallel over 2 shards "
+        f"vs one device: expert ids identical={routed} ({len(ep_ids)} "
+        f"routing calls against {len(one_ids)}), output "
+        f"{tol_text(c, torch.bfloat16)}")
+    if not (routed and c["ok"]):
+        fail(f"phase 14 (c): the expert-parallel MoE block differs from one "
+             f"device's")
+
+
+def tp_timing(gen, timer, tp: dict) -> list:
+    """Phase 10's rows at phase 14's per-shard shapes (bf16, page 16),
+    each kernel held against its plain version first: K1 at qwen2-1.5b's
+    tp 2 decode (b=32, kv 1, g 6), K3 at its ``"ref"`` decode, K2 at its
+    prefill (h 6 over kv 1, s 1023) beside SDPA, and K1 at
+    qwen3-moe-235b-a22b's tp 2 decode (kv 2, g 16).  Launches: phase
+    14's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_chunk_attention)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_chunk_attention_ref)
+
+    bf16 = torch.bfloat16
+    src = "src/repro_torch/kernels/paged_attention/csrc/" \
+          "paged_chunk_attention.cu"
+    rows = []
+    for label, name, path, kv, g in (
+            ("K1 qwen2-1.5b tp 2 decode", "qwen2-1.5b", "fused", 1, 6),
+            ("K3 qwen2-1.5b tp 2 decode", "qwen2-1.5b", "ref", 1, 6),
+            ("K1 qwen3-moe-235b-a22b tp 2 decode", "qwen3-moe-235b-a22b",
+             "fused", 2, 16)):
+        res = tp[name][path]
+        lengths = res["decode_lengths"]
+        case = paged_case(gen, b=len(lengths), t=1, kv=kv, g=g, hd=128,
+                          page=16, lengths=lengths, dtype=bf16)
+        if path == "ref":
+            case = cached_case(case)
+            fn, ref_fn, cost = (paged_attention, paged_attention_ref,
+                                cached_cost)
+            kernel, replaces = "paged_attention", "kernel.py:114"
+        else:
+            fn, ref_fn, cost = (paged_chunk_attention,
+                                paged_chunk_attention_ref, paged_cost)
+            kernel, replaces = "paged_chunk_attention", "kernel.py:260"
+        c = compare(fn(**case), ref_fn(**case))
+        if not c["ok"]:
+            fail(f"{label}: {kernel} disagrees with its plain version "
+                 f"({tol_text(c, bf16)})")
+        ms = timer(lambda: fn(**case))
+        plain = timer(lambda: ref_fn(**case), 5)
+        bnd, by = bound_ms(*cost(case), bf16)
+        launches = res["launches"][kernel]
+        log(f"{label} b={len(lengths)} kv={kv} g={g} (lengths "
+            f"{min(lengths)}-{max(lengths)}): {tol_text(c, bf16)}; kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
+            f"{launches} launches in phase 14")
+        rows.append({
+            "name": f"{kernel} (tp 2 shard: {name}, kv {kv}, g {g})",
+            "route": "cuda", "source": src,
+            "replaces": f"src/repro/kernels/paged_attention/{replaces}",
+            "launches": launches, "max_abs_err": c["max_abs_err"],
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None})
+    q, k, v = flash_case(gen, s=1023, h=6, kv=1)
+    c = compare(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+    if not c["ok"]:
+        fail(f"K2 at qwen2-1.5b's tp 2 shard: {tol_text(c, bf16)}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = timer(lambda: flash_attention(q, k, v))
+    plain = timer(lambda: flash_attention_ref(q, k, v), 5)
+    lib = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    bnd, by = bound_ms(*flash_cost(q, k), bf16)
+    launches = sum(tp[n][p]["launches"]["flash_attention"]
+                   for n in tp for p in tp[n])
+    log(f"K2 qwen2-1.5b tp 2 shard h=6 kv=1 s=1023: {tol_text(c, bf16)}; "
+        f"kernel {ms:.4f} ms, sdpa {lib:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {bnd:.4f} ms ({by}), {launches} launches in phase 14")
+    rows.append({
+        "name": "flash_attention (tp 2 shard: qwen2-1.5b, h 6, kv 1)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+        "launches": launches, "max_abs_err": c["max_abs_err"], "ms": ms,
+        "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": lib})
+    return rows
+
+
 @contextlib.contextmanager
 def forced_splits(n: int):
     """Split K1's page walk into n ranges, one block each (the wrapper
@@ -3006,7 +3403,7 @@ def forced_splits(n: int):
 
 def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
                  explore: dict, door: dict, families: dict,
-                 train: dict) -> list:
+                 train: dict, tp: dict) -> list:
     """Kernel rows: K1 and K2 at the fused dense path's shapes, K3 at path
     B's, K4 at path A's; K1's and K2's launches are the fused dense
     path's, the public API phase's, the front door's and phases 11 and
@@ -3193,6 +3590,7 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
     })
     family_timing(gen, timer, families)
     train_timing(gen, timer, train)
+    rows += tp_timing(gen, timer, tp)
     return rows
 
 
@@ -3313,21 +3711,32 @@ def main() -> None:
             fail(f"{name} was built without tensor-core instructions")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     t0 = time.perf_counter()
-    phase_kernels(gen)
-    dense, legacy = phase_dense()
-    ssm = phase_ssm()
-    phase_parity()
-    explore = phase_explore()
-    phase_cli()
-    door = phase_front_door()
-    device_explore = phase_device_explore()
-    fs = phase_branchfs()
-    families = phase_families()
-    families.update(phase_hybrid_moe())
-    train = phase_train()
-    rows = phase_timing(gen, dense, legacy, ssm, explore, door, families,
-                        train)
-    log(f"total {time.perf_counter() - t0:.1f} s after the build")
+    secs = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(time.perf_counter() - t, 1)
+        log(f"-- {name} took {secs[name]} s")
+        return out
+
+    timed("phase 2", phase_kernels, gen)
+    dense, legacy = timed("phase 3", phase_dense)
+    ssm = timed("phase 4", phase_ssm)
+    timed("phase 5", phase_parity)
+    explore = timed("phase 6", phase_explore)
+    timed("phase 6 cli", phase_cli)
+    door = timed("phase 7", phase_front_door)
+    device_explore = timed("phase 8", phase_device_explore)
+    fs = timed("phase 9", phase_branchfs)
+    families = timed("phase 11", phase_families)
+    families.update(timed("phase 12", phase_hybrid_moe))
+    train = timed("phase 13", phase_train)
+    tp = timed("phase 14", phase_tp)
+    rows = timed("phase 10", phase_timing, gen, dense, legacy, ssm, explore,
+                 door, families, train, tp)
+    log(f"total {time.perf_counter() - t0:.1f} s after the build; by phase "
+        f"{json.dumps(secs)}")
     keys = ("prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",
             "launches", "profile")
     for name, res in (("dense path (fused)", dense),
@@ -3343,6 +3752,14 @@ def main() -> None:
     log("device explore: " + json.dumps(device_explore))
     log(f"BranchFS ({os.uname().nodename}): " + json.dumps(fs))
     log("training phase (13): " + json.dumps(train))
+    log("tensor-parallel phase (14, tp 2 on one card): " + json.dumps(
+        {name: {path: {k: r[k] for k in (
+            "prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",
+            "device_busy_share", "launches", "first_step_rel_rms",
+            "first_step_argmax_agree") if k in r} | {
+            "walk_launches_per_step": r["profile"].get(
+                "walk_launches_per_step")}
+            for path, r in res.items()} for name, res in tp.items()}))
     log("families phases (11, 12): " + json.dumps(
         {name: {k: ({kk: r[kk] for kk in ("prefill_ms", "decode_step_ms_p50",
                                            "decode_tokens_per_s",

@@ -748,9 +748,8 @@ class BranchSession:
 
     @property
     def tp(self) -> int:
-        """Tensor-parallel width of the underlying serving mesh (always 1:
-        the port serves on one device).  Handles, flags and errno
-        semantics do not depend on it."""
+        """Tensor-parallel width of the underlying serving mesh.  Handles,
+        flags and errno semantics do not depend on it."""
         return self.sched.tp
 
     def step(self, **decode_kw: Any) -> Dict[str, Any]:

@@ -1,0 +1,132 @@
+"""Mesh and axis conventions of the port.
+
+Counterparts of ``ParallelPlan``, ``SINGLE_DEVICE``, ``serving_mesh`` and
+``serving_plan`` in ``repro/distributed/mesh.py`` (``plan_from_mesh`` and
+the plan's data-parallel sizes come with training across cards).
+Axis names are the JAX package's:
+
+  ``pod``   — cross-pod data parallelism
+  ``data``  — in-pod data parallelism + FSDP parameter sharding
+  ``model`` — tensor parallelism (heads / d_ff / experts / vocab)
+  ``tp``    — the serving mesh's tensor-parallel axis
+
+A :class:`DeviceMesh` is a named grid of ``torch.device`` s, the
+counterpart of a JAX ``Mesh``.  One host process drives every device of
+it: a sharded pass issues each shard's work on its own device (launches
+are asynchronous, so shards on different cards overlap) and combines the
+partial results through :mod:`repro_torch.distributed.collectives`.  A
+mesh may name one device several times: every shard then runs there,
+which is how the CPU tests and a one-card run drive tensor parallelism.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+class DeviceMesh:
+    """Devices laid out on named axes: ``devices`` is an object array of
+    ``torch.device`` shaped like the mesh, ``shape`` maps each axis name to
+    its size (as ``jax.sharding.Mesh``)."""
+
+    def __init__(self, devices: Any, axis_names: Sequence[str]):
+        src = np.asarray(devices, dtype=object)
+        arr = np.empty(src.shape, dtype=object)
+        for idx in np.ndindex(arr.shape):
+            arr[idx] = torch.device(src[idx])
+        if arr.ndim != len(axis_names):
+            raise ValueError(f"{arr.ndim}-D devices for axes {axis_names}")
+        self.devices = arr
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def __repr__(self) -> str:
+        return (f"DeviceMesh({self.shape}, "
+                f"[{', '.join(map(str, self.devices.flat))}])")
+
+
+@dataclass(frozen=True)
+class ParallelPlan:
+    mesh: Optional[DeviceMesh] = None
+    dp_axes: Tuple[str, ...] = ()
+    tp_axis: Optional[str] = None
+
+    @property
+    def is_distributed(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def tp_size(self) -> int:
+        return self.mesh.shape[self.tp_axis] if (
+            self.mesh and self.tp_axis) else 1
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        """The tp shards' devices in shard order: the tp axis at index 0 of
+        every other axis (serving replicates the batch over those).  Empty
+        for the single-device plan."""
+        if self.mesh is None:
+            return ()
+        ax = self.mesh.axis_names.index(self.tp_axis)
+        idx = [0] * self.mesh.devices.ndim
+        idx[ax] = slice(None)
+        return tuple(self.mesh.devices[tuple(idx)])
+
+
+SINGLE_DEVICE = ParallelPlan()
+
+
+# ---------------------------------------------------------------------------
+# serving meshes
+# ---------------------------------------------------------------------------
+
+def serving_mesh(tp: int, devices: Optional[Sequence[Any]] = None
+                 ) -> DeviceMesh:
+    """A 1-D tensor-parallel mesh (axis ``tp``) for the serving hot loop.
+
+    ``devices`` lists the shards' devices in order and may repeat one
+    (``["cuda:0"] * 2`` runs both shards on one card, ``["cpu"] * 2`` on
+    the CPU).  Without it the mesh takes the first ``tp`` visible CUDA
+    cards and raises when fewer are visible; nothing falls back to another
+    device.  There is no data axis: the decode batch is one continuous
+    batch whose host-side branch bookkeeping (block tables, scheduler
+    ledger, lifecycle tree) exists once.
+    """
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if tp > n:
+            raise ValueError(
+                f"tp={tp} exceeds the {n} visible CUDA devices; name the "
+                "shards' devices (devices=[...], or device= on the engine) "
+                "to run several shards on one device")
+        devices = [torch.device("cuda", i) for i in range(tp)]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != tp:
+        raise ValueError(f"tp={tp} needs {tp} devices, got {len(devices)}")
+    return DeviceMesh(devices, ("tp",))
+
+
+def serving_plan(mesh: Optional[DeviceMesh]) -> ParallelPlan:
+    """ParallelPlan for a serving mesh (``None`` -> single device).
+
+    Accepts a ``tp``-axis mesh from :func:`serving_mesh` or any mesh with
+    a ``model`` axis (its tensor-parallel axis is reused; ``data``/``pod``
+    axes are ignored by serving, which keeps the batch replicated).
+    """
+    if mesh is None:
+        return SINGLE_DEVICE
+    if "tp" in mesh.axis_names:
+        return ParallelPlan(mesh=mesh, dp_axes=(), tp_axis="tp")
+    if "model" in mesh.axis_names:
+        return ParallelPlan(mesh=mesh, dp_axes=(), tp_axis="model")
+    raise ValueError(
+        f"serving mesh needs a 'tp' or 'model' axis, got {mesh.axis_names}")

@@ -9,7 +9,8 @@ rebuilds and a stale library is never loaded.  :func:`build_all` starts one
 :func:`entry` returns one entry point of a library.
 
 Wrappers pass tensors as ``data_ptr()`` integers and the stream as
-``torch.cuda.current_stream().cuda_stream``; each C entry point returns
+``torch.cuda.current_stream().cuda_stream``; :func:`launch` calls an
+entry point with the tensors' card current.  Each C entry point returns
 ``cudaGetLastError()`` of its launch and :func:`check` raises on a non-zero
 code.  Nothing here runs at import time: the CPU tests import every module
 of the port on a machine without ``nvcc``.
@@ -165,3 +166,15 @@ def check_aligned(name: str, **tensors) -> None:
 def check(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def launch(name: str, device, *args) -> None:
+    """Call entry point ``name`` with ``device`` the current card (the
+    launch, and the function attributes the entry point sets, go to the
+    card its tensors lie on) and raise on the error it returns."""
+    import torch
+
+    fn = entry(name)
+    with torch.cuda.device(device):
+        rc = fn(*args)
+    check(name, rc)

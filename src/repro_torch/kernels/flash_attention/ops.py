@@ -60,12 +60,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor,
                          f"do not match q {tuple(q.shape)}")
     _build.check_aligned(NAME, q=q, k=k, v=v)
     out = torch.empty_like(q)
-    fn = _build.entry(NAME)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, h, kv, hd, int(q.dtype == torch.bfloat16),
-            1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(NAME, rc)
+    _build.launch(NAME, q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, s, h, kv, hd, int(q.dtype == torch.bfloat16),
+                  1.0 / math.sqrt(hd),
+                  torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES[NAME] += 1
     return out
 

@@ -332,6 +332,7 @@ constexpr int TC_STAGES_BLOCK = 4;   // ring depth of a 64-row block (rows > 32)
 constexpr int TC_ONE_WARP_ROWS = 32; // the most rows served by one-warp blocks
 constexpr float TC_LOG2E = 1.4426950408889634f;
 constexpr int MAX_CLUSTER = 16;      // blocks of a cluster (above 8: non-portable)
+constexpr int MAX_DEVICES = 64;      // cards whose function attributes are cached
 
 // Bytes of one staged tile (K rows, then V rows, each padded by 16 bytes),
 // sized for bf16 so that it also holds an int8 tile.
@@ -771,20 +772,25 @@ static int launch_tc_rows(const Args& a) {
   const int per = (tiles_max + a.n_split - 1) / a.n_split;
   const int np_max = (per * TC_KEYS + a.page - 1) / a.page + 1;
   const size_t smem = tc_pages_bytes(np_max, kQuant) + tc_ring_bytes<HD, kOneWarp>();
-  // set once per instantiation: the launch itself adds no host work
-  static size_t smem_set = 0;
-  static bool non_portable = false;
-  if (smem > smem_set) {
+  // set once per instantiation and card (a function's attributes are the
+  // current card's): the launch itself adds no host work
+  static size_t smem_set[MAX_DEVICES] = {};
+  static bool non_portable[MAX_DEVICES] = {};
+  int dev = 0;
+  const cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > smem_set[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = smem;
+    smem_set[dev] = smem;
   }
-  if (a.n_split > 8 && !non_portable) {  // clusters above 8 blocks are not portable
+  if (a.n_split > 8 && !non_portable[dev]) {  // clusters above 8 blocks are not portable
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
-    non_portable = true;
+    non_portable[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.b * a.kv, (a.t * a.g + ROWS - 1) / ROWS, a.n_split);

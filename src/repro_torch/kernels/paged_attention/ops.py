@@ -166,17 +166,17 @@ def paged_chunk_attention(
     tc = q.dtype == torch.bfloat16
     splits = _splits(n_splits(b, t, kv, g, q.device, tc), NAME)
     parts = _partials(splits, tc, b * t * kv * g, hd, q.device)
-    fn = _build.entry(NAME)
-    rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-            lengths.data_ptr(), page_map.data_ptr(),
-            k_scales.data_ptr() if quant else None,
-            v_scales.data_ptr() if quant else None, out.data_ptr(),
-            *(_ptr(x) for x in parts),
-            b, t, kv, g, hd, k_pages.shape[1], block_tables.shape[1], splits,
-            int(tc), int(quant), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(NAME, rc)
+    _build.launch(NAME, q.device,
+                  q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                  k_pages.data_ptr(), v_pages.data_ptr(),
+                  block_tables.data_ptr(), lengths.data_ptr(),
+                  page_map.data_ptr(),
+                  k_scales.data_ptr() if quant else None,
+                  v_scales.data_ptr() if quant else None, out.data_ptr(),
+                  *(_ptr(x) for x in parts),
+                  b, t, kv, g, hd, k_pages.shape[1], block_tables.shape[1],
+                  splits, int(tc), int(quant), 1.0 / math.sqrt(hd),
+                  torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES[NAME] += 2 if parts[0] is not None else 1
     return out
 
@@ -227,12 +227,11 @@ def paged_attention(
     tc = q.dtype == torch.bfloat16
     splits = _splits(n_splits(b, 1, kv, g, q.device, tc), CACHED_NAME)
     parts = _partials(splits, tc, b * kv * g, hd, q.device)
-    fn = _build.entry(CACHED_NAME)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            *(_ptr(x) for x in parts), b, kv, g, hd, k_pages.shape[1],
-            block_tables.shape[1], splits, int(tc), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(CACHED_NAME, rc)
+    _build.launch(CACHED_NAME, q.device,
+                  q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                  block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  *(_ptr(x) for x in parts), b, kv, g, hd, k_pages.shape[1],
+                  block_tables.shape[1], splits, int(tc), 1.0 / math.sqrt(hd),
+                  torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES[CACHED_NAME] += 2 if parts[0] is not None else 1
     return out

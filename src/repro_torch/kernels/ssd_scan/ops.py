@@ -70,12 +70,11 @@ def _forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     N = B.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((b, H, N, P), dtype=torch.float32, device=x.device)
-    fn = _build.entry(NAME)
-    rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, H, P, N,
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(NAME, rc)
+    _build.launch(NAME, x.device,
+                  x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                  C.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, H, P, N,
+                  int(x.dtype == torch.bfloat16),
+                  torch.cuda.current_stream(x.device).cuda_stream)
     LAUNCHES[NAME] += 1
     return y, state
 

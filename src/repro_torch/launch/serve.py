@@ -27,8 +27,11 @@ address is printed on the ``serving on http://...`` line.
     python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --serve 127.0.0.1:8777 --tenants vip:16:3,batch:32:1
 
-Not ported yet, and refused with a non-zero exit rather than served some
-other way: ``--tp`` (tensor-parallel serving, ROADMAP's multi-GPU item).
+``--tp N`` serves through a tensor-parallel engine of ``N`` shards and
+prints the ``serving mesh: tp=N over [...]`` line with the shards'
+devices: on the first ``N`` cards by default, every shard on one device
+with ``--device cpu`` or ``--device cuda:0``.
+
 A config the paged engine does not serve (``musicgen-medium``'s four
 codebooks, as the JAX engine fails on them, ``mamba2-2.7b`` or the hybrid
 ``zamba2-7b``, which the JAX engine refuses too) exits 2 with the engine's
@@ -62,7 +65,10 @@ def main(argv=None) -> int:
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--temperature", type=float, default=2.0)
     ap.add_argument("--tp", type=int, default=None,
-                    help="tensor-parallel width (not ported yet: exits 2)")
+                    help="tensor-parallel width of the serving mesh "
+                         "(default: single-device; the shards take the "
+                         "first N cards, or all lie on --device when it "
+                         "names one)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="record per-branch lifecycle spans and write a "
                          "Chrome/Perfetto trace.json here on exit "
@@ -87,10 +93,6 @@ def main(argv=None) -> int:
                          "the kernels' plain versions at the JAX demo's "
                          "reduced size)")
     args = ap.parse_args(argv)
-    if args.tp is not None:
-        print("--tp: tensor-parallel serving is not ported yet (ROADMAP, "
-              "modules to port: multi-GPU)", file=sys.stderr)
-        return 2
 
     from repro_torch.api import BranchSession
     from repro_torch.configs import get_config, reduced
@@ -102,24 +104,34 @@ def main(argv=None) -> int:
     from repro_torch.runtime import ServeEngine
 
     device = resolve_device(args.device)
+    if args.tp is not None and args.device is None:
+        device = None     # the serving mesh takes the first --tp cards
     cfg = get_config(args.arch)
     try:                 # before any weights are drawn
         check_engine_servable(cfg)
     except NotImplementedError as e:
         print(f"--arch {args.arch}: {e}", file=sys.stderr)
         return 2
-    if device.type == "cpu":
+    if device is not None and device.type == "cpu":
         if cfg.param_count() > 1e8:  # big archs run reduced on CPU demo
             cfg = reduced(cfg)
         cfg = dataclasses.replace(cfg, dtype="float32")
     model = Model(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(0))
-    engine = ServeEngine(model, params, num_pages=args.num_pages,
-                         page_size=8, max_pages_per_seq=64,
-                         prefix_cache=not args.no_prefix_cache,
-                         obs=Observability(trace=args.trace is not None),
-                         device=device)
+    params = model.init(torch.Generator(
+        device=device or "cuda").manual_seed(0))
+    try:
+        engine = ServeEngine(model, params, num_pages=args.num_pages,
+                             page_size=8, max_pages_per_seq=64, tp=args.tp,
+                             prefix_cache=not args.no_prefix_cache,
+                             obs=Observability(trace=args.trace is not None),
+                             device=device)
+    except ValueError as e:    # a width the config or the cards refuse
+        print(f"--tp {args.tp}: {e}", file=sys.stderr)
+        return 2
     session = BranchSession(engine, max_batch=args.max_batch, seed=1)
+    if session.tp > 1:
+        print(f"serving mesh: tp={session.tp} over "
+              f"[{', '.join(map(str, engine.devices))}]")
     if args.serve:
         return _serve_front_door(session, args)
     driver = ExplorationDriver(session)

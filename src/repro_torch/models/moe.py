@@ -1,7 +1,8 @@
 """Mixture-of-Experts FFN of the port: sort-based capacity dispatch.
 
-Counterparts of ``init_moe``, ``_capacity``, ``moe_apply_local`` and the
-single-device ``moe_block`` in ``repro/models/moe.py``:
+Counterparts of ``init_moe``, ``_capacity``, ``moe_apply_local`` and
+``moe_block`` (single device and expert-parallel) in
+``repro/models/moe.py``:
 
 * The router runs in f32 (its weight is drawn and kept f32 in a bf16
   model); each token takes its top ``K`` experts by softmax probability
@@ -16,21 +17,30 @@ single-device ``moe_block`` in ``repro/models/moe.py``:
   the combine casts the gates to the model's type and sums over ``K`` in
   f32, rounding once.
 * The load-balancing loss is ``E · Σ_e f_e·p_e``.
+* Expert parallelism (the JAX package's ``shard_map`` branch of
+  ``moe_block``): the experts shard over the tp axis and the router is
+  replicated.  Every shard routes every row of the call, packs only its
+  own experts ``[e0, e0 + E_loc)`` (:func:`moe_apply_local`'s ``e0``), and
+  the shards' f32 outputs are summed (the EP combine is the TP sum) and
+  rounded once; ``aux`` is averaged over the shards.  Capacity counts the
+  call's rows against the full expert set, so drops and tie-breaks are
+  the single device's.
 
-The JAX package's expert-parallel ``shard_map`` branch is multi-GPU work
-(ROADMAP §1, multi-GPU): ``moe_block`` raises on a mesh.  Nothing here
-syncs with the host.
+Nothing here syncs with the host.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.collectives import broadcast, psum
+from repro_torch.distributed.mesh import ParallelPlan
+from repro_torch.distributed.sharding import shard_leaf
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
@@ -72,11 +82,12 @@ def route(cfg: ArchConfig, x: torch.Tensor, router_w: torch.Tensor
 
 def moe_apply_local(cfg: ArchConfig, x: torch.Tensor,
                     router_w: torch.Tensor, wg: Optional[torch.Tensor],
-                    wu: torch.Tensor, wd: torch.Tensor, e0: int = 0
+                    wu: torch.Tensor, wd: torch.Tensor, e0: int = 0,
+                    out_dtype: Optional[torch.dtype] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch, expert FFNs and combine for the experts ``[e0, e0 +
     E_loc)`` held in ``wu``/``wg``/``wd``.  x: ``[n, d]``.  Returns (y
-    ``[n, d]`` in x's type, the f32 aux loss)."""
+    ``[n, d]`` in ``out_dtype``, x's type by default, the f32 aux loss)."""
     n, d = x.shape
     e_total, k = cfg.num_experts, cfg.experts_per_token
     e_loc = wu.shape[0]
@@ -136,21 +147,50 @@ def moe_apply_local(cfg: ArchConfig, x: torch.Tensor,
     w_a = torch.where(slot_a < dump, a_gate,
                       torch.zeros_like(a_gate)).reshape(n, k)
     y = torch.einsum("nkd,nk->nd", y_a.float(), w_a.to(y_a.dtype).float())
-    return y.to(x.dtype), aux
+    return y.to(out_dtype or x.dtype), aux
+
+
+def moe_apply_sharded(cfg: ArchConfig, parts: Sequence[Params],
+                      xs: Sequence[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel FFN: shard ``r`` holds the experts of
+    ``parts[r]`` (contiguous, in shard order) and the replicated router,
+    and ``xs[r]`` ``[n, d]`` is the call's rows on its device.  Returns (the
+    shards' outputs summed on the first shard's device, the mean aux).
+    Each shard's combine stays in f32 and the sum is rounded once to x's
+    type, as one device's combine is."""
+    ys, auxes, e0 = [], [], 0
+    for p, x in zip(parts, xs):
+        y, aux = moe_apply_local(cfg, x, p["router"], p.get("wg"), p["wu"],
+                                 p["wd"], e0, out_dtype=torch.float32)
+        ys.append(y)
+        auxes.append(aux)
+        e0 += p["wu"].shape[0]
+    return psum(ys).to(xs[0].dtype), psum(auxes) / len(auxes)
 
 
 def moe_block(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
-              mesh: Any = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              mesh: Any = None, tp_axis: Optional[str] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN over ``x`` ``[b, s, d]``: every token of the call routed
-    together.  Returns (y ``[b, s, d]``, aux)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE over a mesh is not ported yet (ROADMAP "
-            "§1, multi-GPU)")
+    together.  With a mesh and its ``tp_axis``, the experts of ``p`` shard
+    over that axis's devices (:func:`moe_apply_sharded`) and the result
+    lands on ``x``'s device.  Returns (y ``[b, s, d]``, aux)."""
     b, s, d = x.shape
-    y, aux = moe_apply_local(cfg, x.reshape(-1, d), p["router"], p.get("wg"),
-                             p["wu"], p["wd"])
-    return y.reshape(b, s, d), aux
+    if mesh is None or tp_axis is None:
+        y, aux = moe_apply_local(cfg, x.reshape(-1, d), p["router"],
+                                 p.get("wg"), p["wu"], p["wd"])
+        return y.reshape(b, s, d), aux
+    plan = ParallelPlan(mesh=mesh, tp_axis=tp_axis)
+    tp = plan.tp_size
+    if cfg.num_experts % tp:
+        raise ValueError(f"{cfg.num_experts} experts must divide tp={tp}")
+    parts = [{k: shard_leaf(v, (None,) if k == "router" else (tp_axis,),
+                            tp_axis, r, tp, dev) for k, v in p.items()}
+             for r, dev in enumerate(plan.devices)]
+    y, aux = moe_apply_sharded(cfg, parts,
+                               broadcast(x.reshape(-1, d), plan.devices))
+    return y.reshape(b, s, d).to(x.device), aux.to(x.device)
 
 
 def ffn(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:

@@ -128,9 +128,9 @@ class Scheduler:
 
     @property
     def tp(self) -> int:
-        """Tensor-parallel width of the engine's serving mesh (always 1:
-        the port serves on one device).  The scheduler itself is
-        mesh-agnostic: its ledger counts pages."""
+        """Tensor-parallel width of the engine's serving mesh.  The
+        scheduler itself is mesh-agnostic: its ledger counts pages, and a
+        page id means the same on every shard."""
         return self.engine.tp
 
     # ------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""ServeEngine — branchable paged-KV serving on one CUDA device.
+"""ServeEngine — branchable paged-KV serving on CUDA devices.
 
-The PyTorch counterpart of ``repro/runtime/serve_loop.py``, single device:
+The PyTorch counterpart of ``repro/runtime/serve_loop.py``:
 
 * KV lives in fixed-size **pages** (``[L, n_pages, page, kv, hd]`` pools);
   sequences hold block tables managed by :class:`KVBranchManager`.
@@ -26,17 +26,36 @@ The PyTorch counterpart of ``repro/runtime/serve_loop.py``, single device:
   the JAX engine's ``_ffn`` does.  Several codebooks (audio), the SSM and
   the hybrid family are refused at construction.
 
+**Tensor-parallel serving** (the JAX package's DESIGN §11): ``tp=`` or
+``mesh=`` splits the passes over ``tp`` shards, one host process driving
+all of them.  Weights shard by the training rules retargeted to the tp
+axis (heads, kv heads, d_ff, experts; vocab for an untied head), the pools
+shard on the **kv-head dim** (a page id means the same on every shard),
+and every pass runs each layer's shard-local work on every shard's device
+(launches are asynchronous, so shards on different cards overlap), then
+sums the two partial results a layer (attention output over heads, the
+MLP or MoE down-projection) on shard 0 in shard order and gathers a
+vocab-sharded head's logits there (``distributed.collectives``).  Block
+tables, refcounts, the lifecycle tree and token tails exist once on the
+host, so fork/commit cost does not change with ``tp``.  ``tp=N`` with
+``device="cpu"`` or a card with an index puts every shard there (the
+tests, and a one-card run); without a device, or with ``"cuda"``, it takes
+the first ``N`` cards and raises when fewer are visible.  Unset, the
+engine is one shard holding the whole model on ``device``.
+
 Attention is :func:`repro_torch.kernels.paged_attention.
 paged_chunk_attention` (fused decode, verify, suffix prefill — on both
 paths), :func:`repro_torch.kernels.paged_attention.paged_attention` (the
-legacy decode step) and, through the model's dense prefill,
+legacy decode step) and, in the dense prefill,
 :func:`repro_torch.kernels.flash_attention.flash_attention`: hand-written
-CUDA kernels on the card, their plain versions for CPU tensors.
+CUDA kernels on the card, at each shard's head count; their plain versions
+for CPU tensors.  The dense prefill is the engine's own shard-local pass
+(the JAX engine calls ``Model.prefill`` on sharded parameters and leaves
+the split to XLA); it is the model's prefill at one shard.
 
 Unlike the JAX engine, which returns new pool arrays from every jitted
 step, this engine **updates its pools in place** (indexed writes into
-``k_pages``/``v_pages`` and the scales).  Not ported yet: ``tp=``/
-``mesh=`` (ROADMAP, multi-GPU), which raise ``NotImplementedError``.
+each shard's ``k_pages``/``v_pages`` and scales).
 """
 
 from __future__ import annotations
@@ -51,13 +70,22 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import KVBranchManager
 from repro_torch.core.kvtier import KVSnapshot, KVTierStore
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import all_gather, broadcast, psum
+from repro_torch.distributed.mesh import (
+    DeviceMesh,
+    ParallelPlan,
+    serving_mesh,
+    serving_plan,
+)
+from repro_torch.distributed.sharding import serve_param_specs, shard_params
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (
     paged_attention,
     paged_chunk_attention,
 )
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
-from repro_torch.models.moe import ffn
+from repro_torch.models.moe import moe_apply_sharded
 from repro_torch.models.transformer import (
     check_engine_servable,
     embed_tokens,
@@ -184,6 +212,69 @@ class TokenDomain:
 
 
 # ---------------------------------------------------------------------------
+# the sharded parameters and pools
+# ---------------------------------------------------------------------------
+
+def serve_specs(cfg: ArchConfig, plan: ParallelPlan, params: Any) -> Any:
+    """The engine's parameter spec tree (the training rules retargeted to
+    the serving tp axis).  A multi-codebook head keeps its vocab dim
+    replicated: the ``[b, s, cb, V]`` unflatten in ``lm_head`` needs the
+    full codebook-major vocab on every shard."""
+    specs = serve_param_specs(cfg, plan, params)
+    if cfg.num_codebooks > 1 and "lm_head" in specs:
+        specs["lm_head"] = (None,) * params["lm_head"].dim()
+    return specs
+
+
+def scale_spec(plan: ParallelPlan) -> Tuple[Any, ...]:
+    """Spec of the int8 dequant scales ``[L, n_pages, kv]``: the kv-head
+    dim shards exactly as the pools', so each shard's scales stay with its
+    pool slice."""
+    return (None, None, plan.tp_axis)
+
+
+def _shard_devices(device: Any, tp: int) -> Optional[List[torch.device]]:
+    """The shards' devices for ``tp=`` with ``device=``: every shard on a
+    named device (the CPU, or a card with an index); ``None`` (the first
+    ``tp`` cards) for no device or a bare ``cuda``."""
+    if device is None:
+        return None
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return None
+    return [device] * tp
+
+
+class _Shard:
+    """One tensor-parallel shard: its device, its slice of the parameter
+    tree (with per-layer views) and its kv-head slice of the pools."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device, params: Any,
+                 kv_heads: int, num_pages: int, page_size: int,
+                 quantized: bool):
+        self.device = device
+        self.params = params
+        self.layers = [L.layer_params(params["layers"], i)
+                       for i in range(cfg.num_layers)]
+        dt = torch.int8 if quantized else torch_dtype(cfg)
+        shape = (cfg.num_layers, num_pages, page_size, kv_heads,
+                 cfg.head_dim)
+        self.k_pages = torch.zeros(shape, dtype=dt, device=device)
+        self.v_pages = torch.zeros(shape, dtype=dt, device=device)
+        self.k_scales: Optional[torch.Tensor] = None
+        self.v_scales: Optional[torch.Tensor] = None
+        if quantized:
+            sshape = (cfg.num_layers, num_pages, kv_heads)
+            self.k_scales = torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
+            self.v_scales = torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
+
+    def pools(self) -> Pools:
+        return [self.k_pages, self.v_pages, self.k_scales, self.v_scales]
+
+
+# ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
 
@@ -191,16 +282,12 @@ class ServeEngine:
     def __init__(self, model: Model, params: Any, *, num_pages: int = 256,
                  page_size: int = 16, max_pages_per_seq: int = 32,
                  attn_impl: str = "auto", kv_dtype: Optional[str] = None,
-                 mesh: Any = None, tp: Optional[int] = None,
+                 mesh: Optional[DeviceMesh] = None, tp: Optional[int] = None,
                  prefix_cache: bool = False,
                  tier_host_bytes: int = 64 << 20,
                  tier_disk_dir: Optional[str] = None,
                  obs: Optional[Observability] = None,
                  device: Any = None, seed: int = 0):
-        if mesh is not None or tp is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=/tp=) is not ported yet: "
-                "ROADMAP queue 1, item 13 (multi-GPU)")
         if attn_impl not in ("auto", "ref"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if kv_dtype not in (None, "int8"):
@@ -214,16 +301,47 @@ class ServeEngine:
         check_engine_servable(cfg)
         self.model = model
         self.cfg: ArchConfig = cfg
-        self.device = resolve_device(device)
-        self.params = params_to(params, self.device)
-        self._layers = [L.layer_params(self.params["layers"], i)
-                        for i in range(cfg.num_layers)]
-        self.tp = 1
+        # --- serving mesh (tensor-parallel shards) ----------------------
+        # tp=/mesh= shard the passes; unset keeps one shard holding the
+        # whole model.  Branch bookkeeping (block tables, refcounts,
+        # lifecycle tree, token tails) is host-side and exists once.
+        if mesh is not None and device is not None:
+            raise ValueError("name the shards' devices in mesh= or give "
+                             "device=, not both")
+        if mesh is None and tp is not None:
+            mesh = serving_mesh(tp, _shard_devices(device, tp))
+        self.mesh = mesh
+        self.plan = serving_plan(mesh)
+        self.tp = self.plan.tp_size
+        if tp is not None and tp != self.tp:
+            raise ValueError(
+                f"tp={tp} contradicts the given mesh's tensor-parallel "
+                f"width {self.tp}; pass one or the other")
+        if self.plan.is_distributed:
+            self._check_tp_divisibility(cfg, self.tp)
+            specs = serve_specs(cfg, self.plan, params)
+            devices = self.plan.devices
+            trees = shard_params(cfg, self.plan, params, specs)
+            # a vocab-sharded head's logits are gathered on shard 0
+            self._gather_logits = self.plan.tp_axis in specs.get(
+                "lm_head", ())
+        else:
+            devices = (resolve_device(device),)
+            trees = [params_to(params, devices[0])]
+            self._gather_logits = False
+        self.devices: Tuple[torch.device, ...] = tuple(devices)
+        # shard 0's device holds the residual stream, the logits and the
+        # sampling state
+        self.device = self.devices[0]
         # "auto" is the fused one-launch step; "ref" the legacy step
         self.fast_path = attn_impl == "auto"
         self.attn_impl = "fused" if self.fast_path else "ref"
         self.kv_dtype = kv_dtype
         self.quantized = kv_dtype == "int8"
+        self.shards = [
+            _Shard(cfg, dev, tree, cfg.num_kv_heads // self.tp, num_pages,
+                   page_size, self.quantized)
+            for dev, tree in zip(self.devices, trees)]
         # sampling noise for decode(greedy=False) without a generator
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.obs = Observability() if obs is None else obs
@@ -231,20 +349,6 @@ class ServeEngine:
                                   obs=self.obs)
         self.page_size = page_size
         self.max_pages = max_pages_per_seq
-        dt = torch.int8 if self.quantized else torch_dtype(cfg)
-        shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-                 cfg.head_dim)
-        self.k_pages = torch.zeros(shape, dtype=dt, device=self.device)
-        self.v_pages = torch.zeros(shape, dtype=dt, device=self.device)
-        if self.quantized:
-            sshape = (cfg.num_layers, num_pages, cfg.num_kv_heads)
-            self.k_scales = torch.zeros(sshape, dtype=torch.float32,
-                                        device=self.device)
-            self.v_scales = torch.zeros(sshape, dtype=torch.float32,
-                                        device=self.device)
-        else:
-            self.k_scales = None
-            self.v_scales = None
         self.prefix_cache = prefix_cache
         self.tier = KVTierStore(host_bytes=tier_host_bytes,
                                 disk_dir=tier_disk_dir, obs=self.obs)
@@ -267,7 +371,8 @@ class ServeEngine:
         self._h_decode_us = m.histogram("engine.decode_step_us")
         self._h_batch = m.histogram("engine.batch_occupancy",
                                     lo=1.0, growth=2.0, buckets=12)
-        pool_bytes = sum(t.nbytes for t in self._pools() if t is not None)
+        pool_bytes = sum(t.nbytes for sh in self.shards for t in sh.pools()
+                         if t is not None)
         m.gauge(f"engine.kv_pool_bytes_{self.kv_dtype or 'fp'}").set(
             pool_bytes)
         m.gauge("engine.kv_pool_bytes").set(pool_bytes)
@@ -298,41 +403,100 @@ class ServeEngine:
         performs zero."""
         return self._c_prefill_dispatches.value
 
-    def _pools(self) -> Pools:
-        return [self.k_pages, self.v_pages, self.k_scales, self.v_scales]
+    @staticmethod
+    def _check_tp_divisibility(cfg: ArchConfig, tp: int) -> None:
+        """Refuse a mesh the sums over shards could not be correct on.
+
+        ``sanitize`` replicates a non-dividing dim: fine for an output dim
+        (vocab), wrong for a dim the pass sums over, where every shard
+        would compute the whole reduction and the sum would multiply it by
+        ``tp``.  Those dims must divide.
+        """
+        if cfg.num_kv_heads % tp or cfg.num_heads % tp:
+            raise ValueError(
+                f"tp={tp} must divide num_kv_heads={cfg.num_kv_heads} "
+                f"and num_heads={cfg.num_heads} (KV pages and attention "
+                "output shard on the head dims)")
+        if cfg.is_moe:
+            if cfg.num_experts % tp:
+                raise ValueError(
+                    f"tp={tp} must divide num_experts={cfg.num_experts}")
+        elif cfg.d_ff % tp:
+            raise ValueError(
+                f"tp={tp} must divide d_ff={cfg.d_ff} (the MLP "
+                "down-projection sums over the sharded d_ff dim)")
 
     def _ints(self, x: Any) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.int32,
                                device=self.device)
 
+    def _rep(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """A host-side input of a pass on every shard's device."""
+        return broadcast(x, self.devices)
+
     # ------------------------------------------------------------------
-    # the device passes: one body per pass, a Python loop over layers
+    # the device passes: one body per pass, a Python loop over layers and,
+    # inside it, over shards.  The residual stream lives on shard 0; each
+    # sublayer's normed input is copied to every shard, each shard computes
+    # its heads' (its d_ff's, its experts') partial, and the partials are
+    # summed on shard 0 in shard order (collectives.psum).
     # ------------------------------------------------------------------
-    def _layer_attention(self, i: int, lp: Any, h: torch.Tensor,
-                         positions: torch.Tensor, bt: torch.Tensor,
-                         lengths: torch.Tensor, page_map: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def _layer_attention(self, i: int, h: torch.Tensor,
+                         positions: List[torch.Tensor],
+                         bt: List[torch.Tensor], lengths: List[torch.Tensor],
+                         page_map: List[torch.Tensor]
+                         ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                    List[torch.Tensor]]:
         """Pre-norm attention of layer ``i`` over the paged pool plus the
-        inline chunk.  Returns (h + attention, chunk k, chunk v)."""
+        inline chunk.  Returns (h + attention, each shard's chunk k and
+        v)."""
         cfg = self.cfg
         b, t = h.shape[:2]
-        x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-        q, k, v = L.qkv_project(cfg, lp["attn"], x, positions)
-        kvh = k.shape[2]
-        qc = q.reshape(b, t, kvh, q.shape[2] // kvh, cfg.head_dim)
-        ks = self.k_scales[i] if self.quantized else None
-        vs = self.v_scales[i] if self.quantized else None
-        a = paged_chunk_attention(qc, k, v, self.k_pages[i], self.v_pages[i],
-                                  bt, lengths, page_map, ks, vs)
-        return h + L.attn_out(a.reshape(b, t, -1, cfg.head_dim),
-                              lp["attn"]["wo"]), k, v
+        x = L.rms_norm(h, self.shards[0].layers[i]["ln1"], cfg.norm_eps)
+        parts, ks, vs = [], [], []
+        for r, (sh, xr) in enumerate(zip(self.shards, self._rep(x))):
+            lp = sh.layers[i]["attn"]
+            q, k, v = L.qkv_project(cfg, lp, xr, positions[r])
+            kvh = k.shape[2]
+            qc = q.reshape(b, t, kvh, q.shape[2] // kvh, cfg.head_dim)
+            ks_i = sh.k_scales[i] if self.quantized else None
+            vs_i = sh.v_scales[i] if self.quantized else None
+            a = paged_chunk_attention(qc, k, v, sh.k_pages[i], sh.v_pages[i],
+                                      bt[r], lengths[r], page_map[r], ks_i,
+                                      vs_i)
+            parts.append(L.attn_out(a.reshape(b, t, -1, cfg.head_dim),
+                                    lp["wo"]))
+            ks.append(k)
+            vs.append(v)
+        return h + psum(parts), ks, vs
 
-    def _ffn(self, lp: Any, h: torch.Tensor) -> torch.Tensor:
-        """The layer's post-attention FFN on the ln2-normed hidden, added
-        to it: the MLP, or the MoE block routing every row of the pass
-        together (the batch is never padded: capacity counts its rows)."""
-        x = L.rms_norm(h, lp["ln2"], self.cfg.norm_eps)
-        return h + ffn(self.cfg, lp, x)
+    def _ffn(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        """Layer ``i``'s post-attention FFN on the ln2-normed hidden, added
+        to it: each shard's d_ff slice of the MLP, or its experts of the
+        MoE block (every row of the pass routed together: the batch is
+        never padded, capacity counts its rows), summed over shards."""
+        cfg = self.cfg
+        x = L.rms_norm(h, self.shards[0].layers[i]["ln2"], cfg.norm_eps)
+        xs = self._rep(x)
+        if cfg.is_moe:
+            d = cfg.d_model
+            y, _ = moe_apply_sharded(
+                cfg, [sh.layers[i]["moe"] for sh in self.shards],
+                [xr.reshape(-1, d) for xr in xs])
+            return h + y.reshape(x.shape)
+        return h + psum([L.mlp_block(cfg, sh.layers[i]["mlp"], xr)
+                         for sh, xr in zip(self.shards, xs)])
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Final norm and head on shard 0's device: a vocab-sharded head
+        computes each shard's columns and gathers them."""
+        cfg = self.cfg
+        h = L.rms_norm(h, self.shards[0].params["final_norm"], cfg.norm_eps)
+        if not self._gather_logits:
+            return lm_head(cfg, self.shards[0].params, h)
+        return all_gather([lm_head(cfg, sh.params, hr)
+                           for sh, hr in zip(self.shards, self._rep(h))],
+                          dim=-1)
 
     def _identity_map(self) -> torch.Tensor:
         return torch.arange(self.kv.num_pages, dtype=torch.int32,
@@ -346,142 +510,188 @@ class ServeEngine:
         """One decode step, CoW fault service included; returns logits
         ``[b, V]``.  Per layer, attention reads the pre-copy pool through
         ``page_map``; the page copies (scales too) and the token's slot
-        write follow, in place."""
-        cfg = self.cfg
-        h = embed_tokens(cfg, self.params, tokens)
+        write follow, in place, each shard on its kv-head slice."""
         page_map = self._identity_map()
         if cow_src.numel():
             page_map[cow_dst] = cow_src.to(torch.int32)
-        for i, lp in enumerate(self._layers):
-            h, k, v = self._layer_attention(i, lp, h, lengths[:, None], bt,
-                                            lengths, page_map)
-            if cow_src.numel():
-                for pool in self._pools():
-                    if pool is not None:
-                        # the gather materialises src before the write
-                        pool[i][cow_dst] = pool[i][cow_src]
-            if self.quantized:
-                _quant_token_write(self.k_pages[i], self.k_scales[i],
-                                   slot_pages, slot_offsets, k[:, 0])
-                _quant_token_write(self.v_pages[i], self.v_scales[i],
-                                   slot_pages, slot_offsets, v[:, 0])
-            else:
-                self.k_pages[i][slot_pages, slot_offsets] = k[:, 0]
-                self.v_pages[i][slot_pages, slot_offsets] = v[:, 0]
-            h = self._ffn(lp, h)
-        h = L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)
-        return lm_head(cfg, self.params, h)[:, 0]
+        h = embed_tokens(self.cfg, self.shards[0].params, tokens)
+        bt, lens, page_map, slot_pages, slot_offsets, cow_src, cow_dst = (
+            self._rep(x) for x in (bt, lengths, page_map, slot_pages,
+                                   slot_offsets, cow_src, cow_dst))
+        positions = [ln[:, None] for ln in lens]
+        for i in range(self.cfg.num_layers):
+            h, ks, vs = self._layer_attention(i, h, positions, bt, lens,
+                                              page_map)
+            for r, sh in enumerate(self.shards):
+                if cow_src[r].numel():
+                    for pool in sh.pools():
+                        if pool is not None:
+                            # the gather materialises src before the write
+                            pool[i][cow_dst[r]] = pool[i][cow_src[r]]
+                sp, so = slot_pages[r], slot_offsets[r]
+                if self.quantized:
+                    _quant_token_write(sh.k_pages[i], sh.k_scales[i], sp, so,
+                                       ks[r][:, 0])
+                    _quant_token_write(sh.v_pages[i], sh.v_scales[i], sp, so,
+                                       vs[r][:, 0])
+                else:
+                    sh.k_pages[i][sp, so] = ks[r][:, 0]
+                    sh.v_pages[i][sp, so] = vs[r][:, 0]
+            h = self._ffn(i, h)
+        return self._logits(h)[:, 0]
 
     def _legacy_decode_step(self, bt: torch.Tensor, lengths: torch.Tensor,
                             slot_pages: torch.Tensor,
                             slot_offsets: torch.Tensor, tokens: torch.Tensor
                             ) -> torch.Tensor:
         """The legacy decode step (``attn_impl="ref"``), CoW faults already
-        serviced; returns logits ``[b, V]``.  Per layer the token's K/V is
-        written into its slot first, then cached-only attention reads the
-        ``lengths + 1`` positions that now include it."""
+        serviced; returns logits ``[b, V]``.  Per layer each shard writes
+        the token's K/V into its slot first, then cached-only attention
+        reads the ``lengths + 1`` positions that now include it."""
         cfg = self.cfg
         b = tokens.shape[0]
-        h = embed_tokens(cfg, self.params, tokens)
-        for i, lp in enumerate(self._layers):
-            x = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-            q, k, v = L.qkv_project(cfg, lp["attn"], x, lengths[:, None])
-            self.k_pages[i][slot_pages, slot_offsets] = k[:, 0]
-            self.v_pages[i][slot_pages, slot_offsets] = v[:, 0]
-            kvh = k.shape[2]
-            qh = q.reshape(b, kvh, q.shape[2] // kvh, cfg.head_dim)
-            a = paged_attention(qh, self.k_pages[i], self.v_pages[i], bt,
-                                lengths + 1)
-            h = h + L.attn_out(a.reshape(b, 1, -1, cfg.head_dim),
-                               lp["attn"]["wo"])
-            h = self._ffn(lp, h)
-        h = L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)
-        return lm_head(cfg, self.params, h)[:, 0]
+        h = embed_tokens(cfg, self.shards[0].params, tokens)
+        bt, lens, slot_pages, slot_offsets = (
+            self._rep(x) for x in (bt, lengths, slot_pages, slot_offsets))
+        for i in range(cfg.num_layers):
+            x = L.rms_norm(h, self.shards[0].layers[i]["ln1"], cfg.norm_eps)
+            parts = []
+            for r, (sh, xr) in enumerate(zip(self.shards, self._rep(x))):
+                lp = sh.layers[i]["attn"]
+                q, k, v = L.qkv_project(cfg, lp, xr, lens[r][:, None])
+                sh.k_pages[i][slot_pages[r], slot_offsets[r]] = k[:, 0]
+                sh.v_pages[i][slot_pages[r], slot_offsets[r]] = v[:, 0]
+                kvh = k.shape[2]
+                qh = q.reshape(b, kvh, q.shape[2] // kvh, cfg.head_dim)
+                a = paged_attention(qh, sh.k_pages[i], sh.v_pages[i], bt[r],
+                                    lens[r] + 1)
+                parts.append(L.attn_out(a.reshape(b, 1, -1, cfg.head_dim),
+                                        lp["wo"]))
+            h = self._ffn(i, h + psum(parts))
+        return self._logits(h)[:, 0]
 
     def _chunk_pass(self, bt: torch.Tensor, lengths: torch.Tensor,
                     tokens: torch.Tensor, *, want_kv: bool):
         """Score ``t`` tokens per row over the cached prefix plus the
         causal in-chunk window, pools read-only.  Returns logits
-        ``[b, t, V]``, or with ``want_kv`` the chunk's per-layer K/V
-        (``[L, b, t, kv, hd]`` each) and no logits."""
+        ``[b, t, V]``, or with ``want_kv`` each shard's per-layer chunk
+        K/V (``[L, b, t, kv_local, hd]`` each, left on its shard) and no
+        logits."""
         cfg = self.cfg
         t = tokens.shape[1]
-        h = embed_tokens(cfg, self.params, tokens)
+        h = embed_tokens(cfg, self.shards[0].params, tokens)
         positions = lengths[:, None] + torch.arange(
             t, dtype=torch.int32, device=self.device)[None, :]
-        page_map = self._identity_map()
-        ks, vs = [], []
-        for i, lp in enumerate(self._layers):
-            h, k, v = self._layer_attention(i, lp, h, positions, bt,
-                                            lengths, page_map)
+        positions, bt, lens, page_map = (
+            self._rep(x) for x in (positions, bt, lengths,
+                                   self._identity_map()))
+        ks = [[] for _ in self.shards]
+        vs = [[] for _ in self.shards]
+        for i in range(cfg.num_layers):
+            h, k, v = self._layer_attention(i, h, positions, bt, lens,
+                                            page_map)
             if want_kv:
-                ks.append(k)
-                vs.append(v)
+                for r in range(self.tp):
+                    ks[r].append(k[r])
+                    vs[r].append(v[r])
                 if i == cfg.num_layers - 1:
-                    break       # the last layer's MLP feeds only logits
-            h = self._ffn(lp, h)
+                    break       # the last layer's FFN feeds only logits
+            h = self._ffn(i, h)
         if want_kv:
-            return torch.stack(ks), torch.stack(vs)
-        h = L.rms_norm(h, self.params["final_norm"], cfg.norm_eps)
-        return lm_head(cfg, self.params, h)
+            return ([torch.stack(x) for x in ks],
+                    [torch.stack(x) for x in vs])
+        return self._logits(h)
+
+    def _dense_pass(self, tokens: torch.Tensor
+                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """The dense prefill of a prompt ``[1, s]``: per layer each shard
+        projects its heads, runs the flash attention kernel at its head
+        count and its ``wo`` slice; the FFN as in every pass.  Returns each
+        shard's per-layer K/V (``[L, 1, s, kv_local, hd]``), no logits."""
+        cfg = self.cfg
+        s = tokens.shape[1]
+        h = embed_tokens(cfg, self.shards[0].params, tokens)
+        positions = self._rep(torch.arange(s, device=self.device))
+        ks = [[] for _ in self.shards]
+        vs = [[] for _ in self.shards]
+        for i in range(cfg.num_layers):
+            x = L.rms_norm(h, self.shards[0].layers[i]["ln1"], cfg.norm_eps)
+            parts = []
+            for r, (sh, xr) in enumerate(zip(self.shards, self._rep(x))):
+                lp = sh.layers[i]["attn"]
+                q, k, v = L.qkv_project(cfg, lp, xr, positions[r])
+                parts.append(L.attn_out(flash_attention(q, k, v), lp["wo"]))
+                ks[r].append(k)
+                vs[r].append(v)
+            h = h + psum(parts)
+            if i < cfg.num_layers - 1:  # the last FFN feeds only logits
+                h = self._ffn(i, h)
+        return [torch.stack(x) for x in ks], [torch.stack(x) for x in vs]
 
     # ------------------------------------------------------------------
-    def _scatter_prefill(self, pages: Sequence[int], k: torch.Tensor,
-                         v: torch.Tensor, n_tokens: int) -> None:
-        """Scatter ``n_tokens`` of per-layer K/V (``[L, n, kv, hd]``) into
-        ``pages`` in one indexed write per pool: token ``j`` lands in
-        ``pages[j // page_size]`` at offset ``j % page_size``.  int8 pools
-        quantize per page and kv head over the page's filled part."""
+    def _scatter_prefill(self, pages: Sequence[int], ks: List[torch.Tensor],
+                         vs: List[torch.Tensor], n_tokens: int) -> None:
+        """Scatter ``n_tokens`` of per-layer K/V (each shard's ``[L, n,
+        kv_local, hd]``) into ``pages`` of its pools, one indexed write per
+        pool: token ``j`` lands in ``pages[j // page_size]`` at offset ``j %
+        page_size``.  int8 pools quantize per page and kv head over the
+        page's filled part."""
         ps = self.page_size
         n_pages = -(-n_tokens // ps)
-        page_ids = torch.tensor(list(pages[:n_pages]), dtype=torch.int64,
-                                device=self.device)
-        j = torch.arange(n_tokens, device=self.device)
-        dst_page, dst_off = page_ids[j // ps], j % ps
-        if not self.quantized:
-            self.k_pages[:, dst_page, dst_off] = k[:, :n_tokens]
-            self.v_pages[:, dst_page, dst_off] = v[:, :n_tokens]
-            return
-        nl, _, kvh, hd = k.shape
-        for pool, scales, src in ((self.k_pages, self.k_scales, k),
-                                  (self.v_pages, self.v_scales, v)):
-            fp = torch.zeros((nl, n_pages * ps, kvh, hd), dtype=torch.float32,
-                             device=self.device)
-            fp[:, :n_tokens] = src[:, :n_tokens].float()
-            fp = fp.reshape(nl, n_pages, ps, kvh, hd)
-            # zero padding never raises a page's amax
-            sc = (fp.abs().amax(dim=(2, 4)) / 127.0).clamp_min(1e-8)
-            q8 = torch.round(fp / sc[:, :, None, :, None]).clamp(-127, 127)
-            q8 = q8.to(torch.int8).reshape(nl, n_pages * ps, kvh, hd)
-            pool[:, dst_page, dst_off] = q8[:, :n_tokens]
-            scales[:, page_ids] = sc
+        ids = torch.tensor(list(pages[:n_pages]), dtype=torch.int64,
+                           device=self.device)
+        for sh, k, v, page_ids in zip(self.shards, ks, vs, self._rep(ids)):
+            j = torch.arange(n_tokens, device=sh.device)
+            dst_page, dst_off = page_ids[j // ps], j % ps
+            if not self.quantized:
+                sh.k_pages[:, dst_page, dst_off] = k[:, :n_tokens]
+                sh.v_pages[:, dst_page, dst_off] = v[:, :n_tokens]
+                continue
+            nl, _, kvh, hd = k.shape
+            for pool, scales, src in ((sh.k_pages, sh.k_scales, k),
+                                      (sh.v_pages, sh.v_scales, v)):
+                fp = torch.zeros((nl, n_pages * ps, kvh, hd),
+                                 dtype=torch.float32, device=sh.device)
+                fp[:, :n_tokens] = src[:, :n_tokens].float()
+                fp = fp.reshape(nl, n_pages, ps, kvh, hd)
+                # zero padding never raises a page's amax
+                sc = (fp.abs().amax(dim=(2, 4)) / 127.0).clamp_min(1e-8)
+                q8 = torch.round(fp / sc[:, :, None, :, None]).clamp(-127,
+                                                                     127)
+                q8 = q8.to(torch.int8).reshape(nl, n_pages * ps, kvh, hd)
+                pool[:, dst_page, dst_off] = q8[:, :n_tokens]
+                scales[:, page_ids] = sc
 
     def _dense_prefill(self, sid: int, tokens: List[int]) -> None:
-        """Full-prompt prefill: dense forward, scatter into the table."""
+        """Full-prompt prefill: the dense pass, scattered into the table."""
         toks = torch.tensor(tokens, dtype=torch.int64,
                             device=self.device)[None]
-        _, cache = self.model.prefill(self.params, toks)
+        ks, vs = self._dense_pass(toks)
         self._c_prefill_dispatches.inc()
-        self._scatter_prefill(self.kv.block_table(sid), cache["k"][:, 0],
-                              cache["v"][:, 0], len(tokens))
+        self._scatter_prefill(self.kv.block_table(sid),
+                              [k[:, 0] for k in ks], [v[:, 0] for v in vs],
+                              len(tokens))
 
     def _chunk_prefill(self, sid: int, tokens: List[int],
                        covered: int) -> None:
         """Suffix prefill: the first ``covered`` tokens are already in
         shared prefix pages; compute KV only for the remainder, attending
-        to the shared pages through the block table (one pass)."""
+        to the shared pages through the block table (one pass).  Each
+        shard's suffix K/V stays on its shard, sharded on the kv-head dim
+        as its pools are: it is never regathered."""
         table = self.kv.block_table(sid)
         bt = np.zeros((1, self.max_pages), np.int32)
         bt[0, :len(table)] = table
         suffix = torch.tensor(tokens[covered:], dtype=torch.int64,
                               device=self.device)[None]
-        k, v = self._chunk_pass(self._ints(bt), self._ints([covered]),
-                                suffix, want_kv=True)
+        ks, vs = self._chunk_pass(self._ints(bt), self._ints([covered]),
+                                  suffix, want_kv=True)
         self._c_prefill_dispatches.inc()
         # the prefix boundary is page-aligned (partial tail pages only
         # match whole prompts, which skip prefill entirely)
         self._scatter_prefill(table[covered // self.page_size:],
-                              k[:, 0], v[:, 0], len(tokens) - covered)
+                              [k[:, 0] for k in ks], [v[:, 0] for v in vs],
+                              len(tokens) - covered)
 
     def add_request(self, prompt: Sequence[int]) -> int:
         """Prefill a prompt into a fresh paged sequence.
@@ -560,22 +770,28 @@ class ServeEngine:
         """Demote a branch's KV out of the device pool into the tier store.
 
         The snapshot keeps the pool's native dtype (bf16 as its 16-bit
-        pattern, int8 with its scales), so :meth:`restore` is
+        pattern, int8 with its scales) and the whole kv-head dim (the
+        shards' slices concatenated in shard order), so :meth:`restore` is
         token-identical.  Returns the number of device pages freed.
         """
         t0 = time.perf_counter_ns()
         table = self.kv.block_table(seq)      # raises ENOENT if unknown
         length = self.kv.length(seq)
         tokens = list(self.token_domain.get(seq))
-        idx = torch.tensor(table, dtype=torch.int64, device=self.device)
+        idx = self._rep(torch.tensor(table, dtype=torch.int64,
+                                     device=self.device))
+
+        def gather(name: str, kv_dim: int) -> Optional[np.ndarray]:
+            if getattr(self.shards[0], name) is None:
+                return None
+            return np.concatenate(
+                [_host(getattr(sh, name)[:, i])
+                 for sh, i in zip(self.shards, idx)], axis=kv_dim)
+
         snap = KVSnapshot(
             seq_id=seq, length=length, n_pages=len(table), tokens=tokens,
-            k_pages=_host(self.k_pages[:, idx]),
-            v_pages=_host(self.v_pages[:, idx]),
-            k_scales=(_host(self.k_scales[:, idx])
-                      if self.quantized else None),
-            v_scales=(_host(self.v_scales[:, idx])
-                      if self.quantized else None))
+            k_pages=gather("k_pages", 3), v_pages=gather("v_pages", 3),
+            k_scales=gather("k_scales", 2), v_scales=gather("v_scales", 2))
         # demote AFTER the gather: it validates and raises with the
         # device state untouched
         self.kv.demote(seq)
@@ -584,7 +800,8 @@ class ServeEngine:
         return len(table)
 
     def restore(self, seq: int) -> None:
-        """Re-seat a tiered branch into freshly allocated device pages.
+        """Re-seat a tiered branch into freshly allocated device pages,
+        each shard taking its kv-head slice of the snapshot.
 
         Fails with the snapshot intact and the branch still tiered if the
         pool cannot fit it (``PoolExhausted``).
@@ -593,13 +810,19 @@ class ServeEngine:
         snap = self.tier.get(seq)             # ENOENT if never tiered
         pages = self.kv.promote(seq)          # ENOSPC leaves snap stored
         if pages:
-            idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
-            arrays = [snap.k_pages, snap.v_pages, snap.k_scales,
-                      snap.v_scales]
-            for pool, arr in zip(self._pools(), arrays):
-                if pool is not None and arr is not None:
-                    pool[:, idx] = torch.from_numpy(arr).to(
-                        self.device).view(pool.dtype)
+            kvl = self.cfg.num_kv_heads // self.tp
+            arrays = [(snap.k_pages, 3), (snap.v_pages, 3),
+                      (snap.k_scales, 2), (snap.v_scales, 2)]
+            for r, sh in enumerate(self.shards):
+                idx = torch.tensor(pages, dtype=torch.int64,
+                                   device=sh.device)
+                for pool, (arr, kv_dim) in zip(sh.pools(), arrays):
+                    if pool is None or arr is None:
+                        continue
+                    part = np.ascontiguousarray(np.take(
+                        arr, range(r * kvl, (r + 1) * kvl), axis=kv_dim))
+                    pool[:, idx] = torch.from_numpy(part).to(
+                        sh.device).view(pool.dtype)
         self.token_domain.seed(seq, snap.tokens)
         self.tier.drop(seq)
         self._h_restore_us.observe((time.perf_counter_ns() - t0) / 1000.0)
@@ -610,13 +833,15 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def _service_cow(self, src: List[int], dst: List[int]) -> None:
         """Service CoW page copies (every layer, scales too) as one
-        batched gather/scatter per pool."""
+        batched gather/scatter per pool; each shard copies its kv-head
+        slice of every faulted page."""
         if not src:
             return
         s, d = _pad_pow2(src, dst, self.device)
-        for pool in self._pools():
-            if pool is not None:
-                pool[:, d] = pool[:, s]
+        for sh, si, di in zip(self.shards, self._rep(s), self._rep(d)):
+            for pool in sh.pools():
+                if pool is not None:
+                    pool[:, di] = pool[:, si]
         self._c_cow_dispatches.inc()
         self._c_cow_faults.inc(len(src))
 

@@ -702,3 +702,67 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def tp_cycle(eng):
+    """The reference's tp serving cycle (decode, fork 2 with lazy CoW, 3
+    steps, commit, a step) and a 4x4 verify; tokens and CoW counters."""
+    sid = eng.add_request([5, 17, 3, 42, 7, 11, 2, 9, 30, 4, 8, 1, 22])
+    toks = [eng.decode([sid])]
+    kids = eng.fork(sid, 2)
+    for _ in range(3):
+        toks.append(eng.decode(kids))
+    rows = eng.spec_verify(kids[1], [[1, 2, 3, 4], [4, 3, 2, 1],
+                                     [7, 7, 7, 7], [9, 8, 7, 6]])
+    parent = eng.commit(kids[0])
+    toks.append(eng.decode([parent]))
+    return toks, rows, eng.cow_dispatches, eng.cow_faults
+
+
+TP_PATHS = {"fused": {}, "ref": {"attn_impl": "ref"},
+            "int8": {"kv_dtype": "int8"}}
+
+
+def tp_runs(devices, path, name="paper-agentic"):
+    """``tp_cycle`` per named run: ``devices`` maps a run's name to its
+    engine's (tp, device) options; float32, 2 layers."""
+    cfg = get_config(name)
+    if cfg.is_moe:
+        cfg = dataclasses.replace(reduced(cfg, d_model=128),
+                                  num_kv_heads=2)
+    cfg = dataclasses.replace(cfg, dtype="float32", num_layers=2)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    out = {}
+    for run, kw in devices.items():
+        eng = ServeEngine(model, params, num_pages=64, page_size=4,
+                          max_pages_per_seq=16, **TP_PATHS[path], **kw)
+        out[run] = tp_cycle(eng)
+        assert eng.tp == kw.get("tp", 1) == len(eng.shards)
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(TP_PATHS))
+def test_tp2_engine_on_one_card_matches_the_cpu(gen, path):
+    """Two shards on one card (one kv head each for the MoE config, the
+    kernels at the shards' shapes): the greedy tokens, verify rows and CoW
+    counters of tp 1 on the card and of tp 2 on the CPU."""
+    for name in ("paper-agentic", "qwen3-moe-235b-a22b"):
+        out = tp_runs({"tp2": dict(tp=2, device="cuda:0"),
+                       "tp1": dict(device="cuda:0"),
+                       "cpu": dict(tp=2, device="cpu")}, path, name)
+        assert out["tp2"] == out["tp1"] == out["cpu"], name
+
+
+@pytest.mark.parametrize("path", sorted(TP_PATHS))
+def test_tp2_engine_one_shard_a_card(gen, path):
+    """One shard a card (``tp=2`` with no device takes cuda:0 and cuda:1;
+    the partial sums cross between the cards): the tokens, verify rows and
+    counters of tp 1 and of tp 2 on the CPU."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards: one shard a card")
+    for name in ("paper-agentic", "qwen3-moe-235b-a22b"):
+        out = tp_runs({"cards": dict(tp=2),
+                       "tp1": dict(device="cuda:0"),
+                       "cpu": dict(tp=2, device="cpu")}, path, name)
+        assert out["cards"] == out["tp1"] == out["cpu"], name

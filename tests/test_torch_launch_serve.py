@@ -100,13 +100,21 @@ def test_trace_writes_a_timeline_and_the_metrics_block(capsys, tmp_path):
         jtrace.read_text())["traceEvents"]}
 
 
-@pytest.mark.parametrize("flag, item", [(["--tp", "2"], "multi-GPU")])
+@pytest.mark.parametrize("flag, item", [
+    pytest.param(["--tp", "2"], "serving mesh: tp=2 over [cpu, cpu]",
+                 id="flag0-multi-GPU")])
 def test_unported_modes_refuse_and_name_their_roadmap_item(flag, item,
                                                            capsys):
-    rc = port_cli.main(flag + ["--device", "cpu"])
-    err = capsys.readouterr().err
-    assert rc == 2
-    assert "not ported yet" in err and "ROADMAP" in err and item in err
+    """The modes once refused here (``--tp``, the ROADMAP's multi-GPU
+    item) now run: ``--device cpu --tp 2`` serves through a two-shard
+    engine and prints the reference's serving-mesh line."""
+    jrc, jlines = run(jax_cli, ["--tokens", "2", "--requests", "1"], capsys)
+    rc, lines = run(port_cli, flag + ["--device", "cpu", "--tokens", "2",
+                                      "--requests", "1"], capsys)
+    assert rc == jrc == 0
+    assert lines[0] == item
+    assert lines[-1].endswith("handles: 0 open")
+    assert structure(lines[1:]) == structure(jlines)
 
 
 SERVING = re.compile(r"serving on http://([0-9.]+):(\d+) \(tenants: (.*)\)$")

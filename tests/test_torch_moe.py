@@ -165,10 +165,25 @@ def test_moe_apply_local_matches_jax_with_drops(act, router):
 
 
 def test_moe_block_refuses_a_mesh():
-    cfg = port_reduced(port_config("dbrx-132b"))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port_moe.moe_block(cfg, {}, torch.zeros(1, 2, cfg.d_model),
-                           mesh=object())
+    """The mesh refusal is gone: over a 2-way tp mesh the expert-parallel
+    branch runs and gives the single device's output within 1e-4
+    (``tests/test_torch_tp_moe.py`` holds it with drops and ties against
+    the reference); a mesh without a tp axis keeps the single-device path,
+    as the reference's ``moe_block`` does."""
+    from repro_torch.distributed import serving_mesh
+
+    cfg = dataclasses.replace(port_reduced(port_config("dbrx-132b")),
+                              dtype="float32")
+    p = port_moe.init_moe(cfg, torch.Generator().manual_seed(0),
+                          torch.float32)
+    x = torch.randn(1, 6, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    y, aux = port_moe.moe_block(cfg, p, x)
+    mesh = serving_mesh(2, ["cpu"] * 2)
+    assert torch.equal(port_moe.moe_block(cfg, p, x, mesh=mesh)[0], y)
+    y_ep, aux_ep = port_moe.moe_block(cfg, p, x, mesh=mesh, tp_axis="tp")
+    torch.testing.assert_close(y_ep, y, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(aux_ep, aux, atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("name", NAMES)

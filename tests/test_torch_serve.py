@@ -238,9 +238,11 @@ def test_no_device_and_no_cuda_raises(setup, monkeypatch):
 
 
 def test_paths_outside_this_slice_raise(setup):
+    """Unknown options raise; tensor-parallel serving (once refused here)
+    runs: ``tp=2`` on the CPU is a two-shard engine."""
     _, _, pmodel, pparams = setup
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ServeEngine(pmodel, pparams, device="cpu", tp=2)
+    eng = ServeEngine(pmodel, pparams, device="cpu", tp=2)
+    assert eng.tp == eng.stats()["tp"] == len(eng.shards) == 2
     with pytest.raises(ValueError):
         ServeEngine(pmodel, pparams, device="cpu", kv_dtype="int4")
     with pytest.raises(ValueError, match="attn_impl"):

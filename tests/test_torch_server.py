@@ -699,10 +699,12 @@ def test_engine_crash_reaches_every_stream(pkgs):
                 raise RuntimeError("injected engine fault")
             return driver_step(**kw)
 
-        fd.driver.step = failing_step
         streams = [await fd.dispatch("POST", "/v1/generate", {
             "prompt": [1, 2, i + 3], "max_new_tokens": 30})
             for i in range(2)]
+        # armed once both streams are open: a fault armed before the
+        # second dispatch could end the loop before that stream existed
+        fd.driver.step = failing_step
         events = await asyncio.wait_for(
             asyncio.gather(*(collect(s) for s in streams)), 30)
         for ev in events:
