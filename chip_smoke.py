@@ -145,7 +145,7 @@ Phases (any failure exits non-zero; nothing is caught into success):
    profiled step's device-busy ms (its share taken of the step p50, since
    the profiler stretches the profiled step's wall time), K2/K4 kernel ms
    and plain backward ms; then ``python -m repro_torch.launch.train
-   --arch paper-agentic --steps 20`` as a subprocess;
+   --arch paper-agentic --steps 8`` as a subprocess;
 14. (run before 10, after 13) tensor-parallel serving with both shards of
    a ``tp=2`` engine on cuda:0, so one card holds the shard-local math,
    the kernels at the shards' shapes and the sums between shards: (a) the
@@ -163,6 +163,23 @@ Phases (any failure exits non-zero; nothing is caught into success):
    shard) through phase 11's load: the expert-parallel block against one
    device on one input (identical ids, output within ``TOL``), the two
    shards' ids at the first routing call, step p50 and busy share;
+15. training over a (data 2, model 2) mesh of cuda:0 named four times:
+   (a) the hard gate in f32 at ``reduced(granite-8b, d_model=128)``:
+   three AdamW steps over the mesh against one device (the tolerances of
+   ``tests/test_torch_train.py``), ``ring_allreduce`` exact,
+   ``psum_quantized`` within ``max|x|/127 · n``, ``ElasticController``
+   from 4 positions to 2, and the MoE block with ``dp_axes`` at
+   qwen3-moe-235b-a22b's full width against one device (identical ids,
+   ``y`` within ``TOL``, ``aux`` the data positions' mean); (b)
+   ``qwen2-1.5b`` at full width and depth in bf16 at phase 13's b 4 × s
+   2048 over the mesh through ``FaultTolerantTrainer`` (phase 13's gates:
+   an injected NaN rolled back bit-identically, falling finite losses, K2
+   launches equal to its calls, 2 per layer, position and step), its first
+   step within bf16 tolerance of phase 13's, step p50, tokens/s and
+   model-FLOP share beside phase 13's, the peaks, a profiled step's busy
+   share; (c) ``launch.train --distributed`` as a subprocess (one card:
+   single-device), started once (b)'s last step has finished on the
+   card, beside the host's processing of (b)'s profiled trace;
 10. the timing of each kernel at the main paths' shapes beside its plain
    version, the nearest single PyTorch call where one exists, the card's
    bound and the time of each kernel's earlier design (from PERF.md: K2
@@ -174,11 +191,14 @@ Phases (any failure exits non-zero; nothing is caught into success):
    forward beside the plain forward, the plain recompute backward and, for
    K2, SDPA's forward + backward) and phase 14's per-shard shapes (K1
    and K3 at qwen2-1.5b's tp 2 decode, kv 1 and g 6; K2 at h 6 over kv 1
-   beside SDPA; K1 at qwen3-moe-235b-a22b's tp 2 decode, kv 2 and g 16);
-   then the ``{"kernels": [...]}`` line (K1-K4, launches summed over the
-   main paths and phases 11, 12 and 13, then the per-shard rows with
-   phase 14's launches), the card line and the final ``{"ok": true,
-   ...}`` line.
+   beside SDPA; K1 at qwen3-moe-235b-a22b's tp 2 decode, kv 2 and g 16)
+   and phase 15's per-position shape (K2 at b 2 × s 2048, h 6 over kv 1:
+   the kernel forward, the plain forward and recompute backward, SDPA's
+   forward and forward + backward); then the ``{"kernels": [...]}`` line
+   (K1-K4, launches summed over the main paths and phases 11, 12, 13 and
+   15, then the per-shard rows with phase 14's launches and the
+   per-position row with phase 15's), the card line and the final
+   ``{"ok": true, ...}`` line.
 
 Every path's kernel launch counters are zeroed just before it runs and
 read just after; a kernel of the path that never launched fails the run.
@@ -2752,14 +2772,16 @@ def counted_train_calls():
             setattr(mod, name, saved[name])
 
 
-def profile_train_step(run_step, step_ms: float) -> dict:
+def profile_train_step(run_step, step_ms: float, when_done=None) -> dict:
     """One training step under torch.profiler (after one traced warm-up
     step, dropped): its device-busy ms, K2's and K4's kernel ms, and the
     device ms under the two Functions' backward labels (the plain
     recompute backward).  The busy share divides the device-busy ms by
     ``step_ms``, an unprofiled step's wall time: the profiler's cost per
     host op stretches the profiled step's own wall time (a step of many
-    small ops the most) but not the kernels' device time."""
+    small ops the most) but not the kernels' device time.  ``when_done``
+    is called once the profiled step has finished on the card, before the
+    host processes the trace (``trace_s``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2773,7 +2795,11 @@ def profile_train_step(run_step, step_ms: float) -> dict:
         t0 = time.perf_counter()
         run_step()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        if when_done is not None:
+            when_done()
+        t0 = time.perf_counter()
         prof.step()
+        trace_s = round(time.perf_counter() - t0, 1)
 
     def device_ms(e, self_only):
         name = ("self_device_time_total" if self_only
@@ -2804,8 +2830,9 @@ def profile_train_step(run_step, step_ms: float) -> dict:
             k4 += ms
     if not busy:
         log("profile: device time not measured (no CUDA events)")
-        return {"profiled_wall_ms": wall_ms, "device_busy_share": None}
-    return {"profiled_wall_ms": round(wall_ms, 1),
+        return {"profiled_wall_ms": wall_ms, "device_busy_share": None,
+                "trace_s": trace_s}
+    return {"profiled_wall_ms": round(wall_ms, 1), "trace_s": trace_s,
             "device_busy_ms": round(busy, 1),
             "device_busy_share": round(busy / step_ms, 4),
             "k2_fwd_ms": round(k2, 2), "k4_fwd_ms": round(k4, 2),
@@ -2825,138 +2852,186 @@ def model_flops(cfg, tokens: int, b: int, s: int) -> float:
     return 6.0 * cfg.param_count() * tokens + attn
 
 
-def phase_train(seed: int = 0) -> dict:
-    """Phase 13: training at full width and depth in bf16, random weights
-    from the port's init, one config at a time (each freed before the
-    next), through ``FaultTolerantTrainer`` without a checkpoint manager:
-    ``TRAIN_STEPS`` steps of AdamW (``cosine_warmup``), clip 1.0, remat on,
-    one injected NaN that must roll back to a bit-identical committed
-    state; every committed loss finite, the last below the first, K2/K4
-    launches equal to their calls (the remat recompute's included: 2 per
-    layer and step).  Then the training CLI as a subprocess."""
-    from repro_torch.configs import get_config
+def trainer_run(name: str, model, b: int, s: int, seed: int,
+                params=None, when_done=None) -> dict:
+    """``TRAIN_STEPS`` steps of one model through ``FaultTolerantTrainer``
+    (no checkpoint manager): AdamW (``cosine_warmup``), clip 1.0, remat on,
+    one injected NaN at ``TRAIN_NAN_AT`` that must roll back to a
+    bit-identical committed state; every committed loss finite, the last
+    below the first; K2/K4 launches equal to their calls, 2 per layer, mesh
+    position and step (the remat recompute's included).  ``params`` places
+    the state's parameters and optimizer state (a plan's placement); the
+    weights come from the port's seeded init.  Returns the run's numbers,
+    its first step's raw metrics and a profiled step (``when_done`` as
+    :func:`profile_train_step`'s)."""
     from repro_torch.data import SyntheticLMPipeline
-    from repro_torch.models import Model
     from repro_torch.optim import adamw, cosine_warmup
     from repro_torch.runtime.fault import FaultTolerantTrainer
     from repro_torch.runtime.train_loop import (
         build_train_step, init_train_state)
 
+    cfg = model.cfg
     card = card_line()
+    positions = model.plan.dp_size * model.plan.tp_size
+    opt = adamw(cosine_warmup(1e-3, 2, TRAIN_STEPS))
+    step = build_train_step(model, opt, clip_norm=1.0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(
+        model, opt, torch.Generator(device="cuda").manual_seed(seed))
+    if params is not None:
+        state = state._replace(params=params(state.params),
+                               opt_state=params(state.opt_state))
+    torch.cuda.synchronize()
+    res = {"params_b": round(cfg.param_count() / 1e9, 3),
+           "b": b, "s": s, "positions": positions,
+           "init_s": round(time.perf_counter() - t0, 1),
+           "init_peak_gb": round(torch.cuda.max_memory_allocated()
+                                 / 1e9, 2)}
+    tr = FaultTolerantTrainer(
+        step_fn=step, state=state, data=SyntheticLMPipeline(
+            cfg, batch=b, seq=s, seed=seed, device="cuda"),
+        corrupt_loss_at=TRAIN_NAN_AT)
+    del state
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    times, rollback_same = [], None
+    with counted_train_calls() as calls:
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_NAN_AT:
+                before = tr.committed_state
+                fp = fingerprint(before)
+                versions = [x._version for x in _state_leaves(before)]
+            t1 = time.perf_counter()
+            tr.run(1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            log(f"{name} step {i}: {times[-1]:.1f} ms, committed "
+                f"{len(tr.metrics_log)}, rollbacks {tr.rollbacks}, "
+                f"loss {tr.metrics_log[-1]['loss']:.4f}")
+            if i == TRAIN_NAN_AT:
+                after = tr.committed_state
+                rollback_same = (
+                    after is before and torch.equal(fingerprint(after), fp)
+                    and versions == [x._version
+                                     for x in _state_leaves(after)])
+                del before, after
+    launches = launch_counts()
+    res["step_peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+    losses = [m["loss"] for m in tr.metrics_log]
+    attn_calls, ssd_calls = calls["flash_attention"], calls["ssd_scan"]
+    res["launches"] = {"flash_attention": launches["flash_attention"],
+                       "ssd_scan": launches["ssd_scan"]}
+    res["calls"] = dict(calls)
+    res["first"] = dict(tr.metrics_log[0])
+    # the steady steps: not the first (lazy set-up) nor the rolled-back
+    steady = [t for i, t in enumerate(times) if i not in (0, TRAIN_NAN_AT)]
+    p50 = statistics.median(steady)
+    tokens = b * s
+    res.update(
+        losses=[round(x, 4) for x in losses], rollbacks=tr.rollbacks,
+        rollback_bit_identical=rollback_same,
+        step_ms=[round(t, 1) for t in times], step_ms_p50=round(p50, 1),
+        tokens_per_s=round(tokens / p50 * 1e3),
+        model_flop_share=round(model_flops(cfg, tokens, b, s)
+                               / (p50 / 1e3) / PEAK_BF16, 4))
+    n_attn = cfg.num_layers * positions if cfg.num_heads else 0
+    n_ssd = cfg.num_layers * positions if cfg.family == "ssm" else 0
+    res["profile"] = profile_train_step(
+        lambda: (tr.run(1), torch.cuda.synchronize()), p50, when_done)
+    log(f"{name} b={b} s={s}: {json.dumps(res)} ({card})")
+    if (not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS - 1
+            or not losses[-1] < losses[0]):
+        fail(f"{name}: training did not commit finite, falling losses: "
+             f"{losses}")
+    if tr.rollbacks != 1 or not rollback_same:
+        fail(f"{name}: the injected NaN did not roll back to a "
+             "bit-identical committed state")
+    if (launches["flash_attention"] != attn_calls
+            or launches["ssd_scan"] != ssd_calls
+            or attn_calls != 2 * n_attn * TRAIN_STEPS
+            or ssd_calls != 2 * n_ssd * TRAIN_STEPS):
+        fail(f"{name}: K2/K4 launches {res['launches']} for calls "
+             f"{calls} (2 per layer, position and step with remat "
+             "expected)")
+    # the trainer's store and its branch tree refer to each other
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train(seed: int = 0) -> dict:
+    """Phase 13: training at full width and depth in bf16, random weights
+    from the port's init, one config at a time (each freed before the
+    next), through :func:`trainer_run`.  Then the training CLI as a
+    subprocess."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
     log(f"== phase 13: training at full width and depth, bf16, random "
-        f"weights ({card})")
+        f"weights ({card_line()})")
     gc.collect()
     out = {}
     for name, b, s in TRAIN_CONFIGS:
-        cfg = get_config(name)
-        model = Model(cfg)
-        opt = adamw(cosine_warmup(1e-3, 2, TRAIN_STEPS))
-        step = build_train_step(model, opt, clip_norm=1.0)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state = init_train_state(
-            model, opt, torch.Generator(device="cuda").manual_seed(seed))
-        torch.cuda.synchronize()
-        res = {"params_b": round(cfg.param_count() / 1e9, 3),
-               "b": b, "s": s, "init_s": round(time.perf_counter() - t0, 1),
-               "init_peak_gb": round(torch.cuda.max_memory_allocated()
-                                     / 1e9, 2)}
-        tr = FaultTolerantTrainer(
-            step_fn=step, state=state, data=SyntheticLMPipeline(
-                cfg, batch=b, seq=s, seed=seed, device="cuda"),
-            corrupt_loss_at=TRAIN_NAN_AT)
-        del state
-        torch.cuda.reset_peak_memory_stats()
-        zero_launches()
-        times, rollback_same = [], None
-        with counted_train_calls() as calls:
-            for i in range(TRAIN_STEPS):
-                if i == TRAIN_NAN_AT:
-                    before = tr.committed_state
-                    fp = fingerprint(before)
-                    versions = [x._version for x in _state_leaves(before)]
-                t1 = time.perf_counter()
-                tr.run(1)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t1) * 1e3)
-                log(f"{name} step {i}: {times[-1]:.1f} ms, committed "
-                    f"{len(tr.metrics_log)}, rollbacks {tr.rollbacks}, "
-                    f"loss {tr.metrics_log[-1]['loss']:.4f}")
-                if i == TRAIN_NAN_AT:
-                    after = tr.committed_state
-                    rollback_same = (
-                        after is before and torch.equal(fingerprint(after), fp)
-                        and versions == [x._version
-                                         for x in _state_leaves(after)])
-                    del before, after
-        launches = launch_counts()
-        res["step_peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9,
-                                    2)
-        losses = [m["loss"] for m in tr.metrics_log]
-        attn_calls, ssd_calls = calls["flash_attention"], calls["ssd_scan"]
-        res["launches"] = {"flash_attention": launches["flash_attention"],
-                           "ssd_scan": launches["ssd_scan"]}
-        res["calls"] = dict(calls)
-        # the steady steps: not the first (lazy set-up) nor the rolled-back
-        steady = [t for i, t in enumerate(times) if i not in (0, TRAIN_NAN_AT)]
-        p50 = statistics.median(steady)
-        tokens = b * s
-        res.update(
-            losses=[round(x, 4) for x in losses], rollbacks=tr.rollbacks,
-            rollback_bit_identical=rollback_same,
-            step_ms=[round(t, 1) for t in times], step_ms_p50=round(p50, 1),
-            tokens_per_s=round(tokens / p50 * 1e3),
-            model_flop_share=round(model_flops(cfg, tokens, b, s)
-                                   / (p50 / 1e3) / PEAK_BF16, 4))
-        n_attn = cfg.num_layers if cfg.num_heads else 0
-        n_ssd = cfg.num_layers if cfg.family == "ssm" else 0
-        res["profile"] = profile_train_step(
-            lambda: (tr.run(1), torch.cuda.synchronize()), p50)
-        log(f"{name} b={b} s={s}: {json.dumps(res)} ({card})")
-        if (not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS - 1
-                or not losses[-1] < losses[0]):
-            fail(f"{name}: training did not commit finite, falling losses: "
-                 f"{losses}")
-        if tr.rollbacks != 1 or not rollback_same:
-            fail(f"{name}: the injected NaN did not roll back to a "
-                 "bit-identical committed state")
-        if (launches["flash_attention"] != attn_calls
-                or launches["ssd_scan"] != ssd_calls
-                or attn_calls != 2 * n_attn * TRAIN_STEPS
-                or ssd_calls != 2 * n_ssd * TRAIN_STEPS):
-            fail(f"{name}: K2/K4 launches {res['launches']} for calls "
-                 f"{calls} (2 per layer and step with remat expected)")
-        out[name] = res
-        # the trainer's store and its branch tree refer to each other
-        del tr
-        gc.collect()
-        torch.cuda.empty_cache()
+        out[name] = trainer_run(name, Model(get_config(name)), b, s, seed)
     out["cli"] = train_cli_run()
     return out
 
 
-def train_cli_run() -> dict:
-    """``python -m repro_torch.launch.train --arch paper-agentic --steps
-    20`` as a subprocess (its own checkpoint directory, removed after)."""
+#: the training CLI's steps in phases 13 and 15 (cut from 20 to keep the
+#: whole script near half its time limit)
+CLI_STEPS = 8
+
+
+def train_cli_start(distributed: bool = False) -> tuple:
+    """Start ``python -m repro_torch.launch.train --arch paper-agentic
+    --steps 8`` as a subprocess (its own checkpoint directory); with
+    ``distributed``, ``--distributed`` too, whose first line says how it
+    placed the run (one card: single-device).  :func:`train_cli_finish`
+    waits for it."""
     root = tempfile.mkdtemp(prefix="chip-smoke-train-")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           "paper-agentic", "--steps", "20", "--ckpt-dir", root]
-    t0 = time.perf_counter()
+           "paper-agentic", *(["--distributed"] if distributed else []),
+           "--steps", str(CLI_STEPS), "--ckpt-dir", root]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=src_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, cmd, root, distributed, time.perf_counter()
+
+
+def train_cli_finish(started: tuple) -> dict:
+    """Wait for :func:`train_cli_start`'s run (killed after 600 s), remove
+    its checkpoint directory and check it finished its steps."""
+    proc, cmd, root, distributed, t0 = started
     try:
-        proc = subprocess.run(cmd, cwd=ROOT, env=src_env(),
-                              capture_output=True, text=True, timeout=600)
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     secs = time.perf_counter() - t0
-    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() \
-        else ""
+    steps = CLI_STEPS
+    lines = out.strip().splitlines()
+    last = lines[-1] if lines else ""
+    placed = lines[0] if distributed and len(lines) > 1 else ""
     log(f"{' '.join(cmd[1:-2])}: exit {proc.returncode} in {secs:.1f} s: "
-        f"{last!r}")
-    if proc.returncode != 0 or not last.startswith("done: step 20 loss "):
-        log(proc.stderr[-4000:])
-        fail("the training CLI did not finish its 20 steps")
-    return {"exit": proc.returncode, "s": round(secs, 1), "line": last}
+        f"{(placed + ' / ') if placed else ''}{last!r}")
+    if (proc.returncode != 0
+            or not last.startswith(f"done: step {steps} loss ")
+            or (distributed and not placed.startswith(
+                ("training mesh:", "--distributed with one visible")))):
+        log(err[-4000:])
+        fail(f"the training CLI did not finish its {steps} steps")
+    return {"exit": proc.returncode, "s": round(secs, 1), "line": last,
+            **({"placed": placed} if distributed else {})}
+
+
+def train_cli_run(distributed: bool = False) -> dict:
+    """The training CLI as a subprocess, start to finish."""
+    return train_cli_finish(train_cli_start(distributed))
 
 
 def train_timing(gen, timer, train: dict) -> None:
@@ -3387,6 +3462,297 @@ def tp_timing(gen, timer, tp: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training over a (data, model) mesh, every position on the card
+# ---------------------------------------------------------------------------
+
+#: phase 15's mesh: (data, model) positions, all on cuda:0
+DIST_SHAPE = (2, 2)
+#: phase 15 (b) against phase 13's first step (same weights and batch),
+#: bf16: each of the 56 sublayers adds its two model positions' bf16
+#: partials where one device rounds one product, and the gradients sum
+#: over the data positions in f32 and round once (one device: once); a
+#: missing or doubled position is an O(1) error
+DIST_BF16_LOSS_REL = 2 ** -7
+DIST_BF16_GNORM_REL = 2 ** -5
+
+
+def card_plan(n: int, prefer_model: int):
+    """``plan_mesh`` over ``n`` positions, every one cuda:0."""
+    from repro_torch.runtime.elastic import plan_mesh
+
+    return plan_mesh(["cuda:0"] * n, prefer_model=prefer_model)
+
+
+def dist_steps(model, state, batches) -> tuple:
+    """Three AdamW steps (lr ``TRAIN_PARITY_LR``, clip 1.0) from ``state``:
+    ([loss, grad norm] per step, the final parameters)."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import build_train_step
+
+    step = build_train_step(model, adamw(TRAIN_PARITY_LR), clip_norm=1.0)
+    metrics = []
+    for batch in batches:
+        state, met = step(state, batch)
+        metrics.append([float(met["loss"]), float(met["grad_norm"])])
+    return metrics, state.params
+
+
+def dist_gate() -> None:
+    """Phase 15 (a), the hard gate, f32 at ``reduced(granite-8b,
+    d_model=128)`` (4 heads over 1 kv head, hd 32): three AdamW steps over
+    the 2 x 2 mesh against the single-device step, both on the card, with
+    ``tests/test_torch_train.py``'s tolerances (losses and grad norms 1e-5
+    relative; parameters within 1e-5 of each leaf's largest magnitude but
+    for 0.1% of the elements, those within 2 lr); ``ring_allreduce`` exact
+    and ``psum_quantized`` within ``max|x|/127 · n`` over the four
+    positions; ``ElasticController`` from 4 positions to 2, the values
+    kept and the shrunk mesh's loss finite (and the single device's within
+    1e-5); then the MoE block with ``dp_axes`` at qwen3-moe's full width
+    (:func:`moe_dp_gate`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.distributed.collectives import (
+        psum_quantized, ring_allreduce)
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import ElasticController
+    from repro_torch.runtime.train_loop import init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config("granite-8b"), d_model=128),
+                              dtype="float32")
+    plan = card_plan(4, DIST_SHAPE[1])
+    one = Model(cfg)
+    mesh_model = Model(cfg, plan=plan)
+    state = init_train_state(one, adamw(TRAIN_PARITY_LR),
+                             torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(3)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 64))
+                                    ).to("cuda")
+                for k in ("tokens", "targets")} for _ in range(3)]
+    zero_launches()
+    want, wp = dist_steps(one, state, batches)
+    got, gp = dist_steps(mesh_model, state, batches)
+    launches = launch_counts()
+    pairs = list(zip(_leaves(gp), _leaves(wp)))
+    diffs = [(a - b_).abs() for a, b_ in pairs]
+    n = sum(d.numel() for d in diffs)
+    flipped = sum(int((d > 1e-5 * float(w.abs().max())).sum())
+                  for d, (_, w) in zip(diffs, pairs))
+    worst = max(float(d.max()) for d in diffs)
+    rel = float(np.max(np.abs(np.array(got) - np.array(want))
+                       / np.abs(np.array(want))))
+    log(f"{cfg.name} reduced (d 128, 4 heads over 1 kv head) f32, 3 AdamW "
+        f"steps over the {plan.mesh.shape} mesh on cuda:0 vs one device: "
+        f"losses and grad norms {got} vs {want}, max rel {rel:.3g} (tol "
+        f"1e-5); params {flipped} of {n} elements beyond 1e-5 of their "
+        f"leaf's largest magnitude (tol {n // 1000}), max |diff| "
+        f"{worst:.3g} (tol {2 * TRAIN_PARITY_LR:.3g}); K2 launches "
+        f"{launches['flash_attention']}")
+    if (rel > 1e-5 or flipped > n // 1000 or worst > 2 * TRAIN_PARITY_LR
+            or not launches["flash_attention"]):
+        fail("phase 15 (a): the step over the mesh differs from one "
+             "device's")
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    parts = [torch.randint(-1000, 1000, (1001, 64), generator=gen,
+                           device="cuda").float() for _ in range(4)]
+    exact = parts[0] + parts[1] + parts[2] + parts[3]
+    ring = ring_allreduce(parts)
+    quant = psum_quantized([p / 7 for p in parts])
+    bound = max(float((p / 7).abs().max()) for p in parts) / 127 * 4
+    qerr = max(float((q - exact / 7).abs().max()) for q in quant)
+    ring_ok = all(torch.equal(r, exact) for r in ring)
+    log(f"ring_allreduce over 4 positions on cuda:0 ([1001, 64] f32, the "
+        f"lead padded to 1004): exact={ring_ok}; psum_quantized max error "
+        f"{qerr:.4g} (bound max|x|/127 * 4 = {bound:.4g})")
+    if not ring_ok or qerr > bound + 1e-5:
+        fail("phase 15 (a): a training collective is wrong")
+
+    params = state.params
+    ctl = ElasticController(cfg, prefer_model=DIST_SHAPE[1])
+    p4, plan4 = ctl.remesh(params, ["cuda:0"] * 4)
+    p2, plan2 = ctl.remesh(p4, ["cuda:0"] * 2)
+    kept = all(torch.equal(a, b_) for a, b_ in zip(_leaves(params),
+                                                    _leaves(p2)))
+    loss2 = float(Model(cfg, plan=plan2).loss(p2, batches[0])[0])
+    loss1 = float(one.loss(params, batches[0])[0])
+    log(f"ElasticController events {ctl.events}: values kept={kept}, loss "
+        f"on the {plan2.mesh.shape} mesh {loss2:.6f} (one device "
+        f"{loss1:.6f})")
+    if (not kept or not np.isfinite(loss2)
+            or abs(loss2 - loss1) > 1e-5 * abs(loss1)):
+        fail("phase 15 (a): the elastic remesh lost values or the loss")
+    del state, params, p4, p2
+    moe_dp_gate()
+    torch.cuda.empty_cache()
+
+
+def moe_dp_gate(seed: int = 0) -> None:
+    """The MoE block with ``dp_axes`` at qwen3-moe-235b-a22b's full width
+    (one layer's experts, bf16, capacity factor 8: no drops) over the 2 x 2
+    mesh on cuda:0, on one input (4 rows of 256 tokens) against one device
+    on the whole input: expert ids identical (each data position's two
+    model positions route its rows as one device does), ``y`` within
+    ``TOL``, ``aux`` the mean of the per-data-position values."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                              moe_capacity_factor=8.0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = moe.init_moe(cfg, gen, torch.bfloat16)
+    x = torch.randn(4, 256, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    plan = card_plan(4, DIST_SHAPE[1])
+    with routed_experts() as one_ids:
+        one, _ = moe.moe_block(cfg, p, x)
+    halves = [float(moe.moe_block(cfg, p, x[i:i + 2])[1]) for i in (0, 2)]
+    with routed_experts() as dp_ids:
+        y, aux = moe.moe_block(cfg, p, x, mesh=plan.mesh,
+                               dp_axes=plan.dp_axes, tp_axis=plan.tp_axis)
+    rows = x.shape[1] * 2
+    want_ids = [one_ids[0][:rows]] * 2 + [one_ids[0][rows:]] * 2
+    c = compare(y, one)
+    want_aux = sum(halves) / 2
+    log(f"{cfg.name} MoE block (E {cfg.num_experts}, top "
+        f"{cfg.experts_per_token}, d {cfg.d_model}, bf16) with dp_axes over "
+        f"the {plan.mesh.shape} mesh vs one device: expert ids identical="
+        f"{dp_ids == want_ids} ({len(dp_ids)} routing calls of {rows} rows), "
+        f"y {tol_text(c, torch.bfloat16)}, aux {float(aux):.6f} vs the mean "
+        f"of the data positions' {want_aux:.6f}")
+    if (dp_ids != want_ids or not c["ok"]
+            or abs(float(aux) - want_aux) > 1e-6 * abs(want_aux)):
+        fail("phase 15 (a): the MoE block with dp_axes differs from one "
+             "device's")
+    del p, x, y, one
+
+
+def phase_dist(train: dict, seed: int = 0) -> dict:
+    """Phase 15: training over a (data 2, model 2) mesh of cuda:0 named four
+    times (one host process drives every position; the script needs one
+    card): (a) :func:`dist_gate`; (b) qwen2-1.5b at full width and depth in
+    bf16 at phase 13's b 4 x s 2048 through :func:`trainer_run` (each data
+    position 2 rows, each model position 6 heads over 1 kv head), its
+    first step's loss and grad norm against phase 13's on the same weights
+    and batch; (c) the training CLI with ``--distributed`` (one card: it
+    trains single-device), a subprocess started once (b)'s profiled step
+    has finished on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.models import Model
+
+    card = card_line()
+    log(f"== phase 15: training over a (data 2, model 2) mesh of cuda:0 "
+        f"({card})")
+    t0 = time.perf_counter()
+    dist_gate()
+    t1 = time.perf_counter()
+    name, b, s = TRAIN_CONFIGS[0]
+    cfg = get_config(name)
+    plan = card_plan(4, DIST_SHAPE[1])
+    # (c) starts once (b)'s last step has finished on the card: it runs
+    # beside the host's processing of (b)'s profiled trace, and no timed
+    # step shares the card with it
+    cli = []
+    try:
+        res = trainer_run(f"{name} over {plan.mesh.shape}",
+                          Model(cfg, plan=plan), b, s, seed,
+                          params=lambda tree: shard_params(cfg, plan, tree),
+                          when_done=lambda: cli.append(
+                              train_cli_start(True)))
+    except BaseException:
+        # a failed (b) leaves no CLI behind
+        if cli:
+            cli[0][0].kill()
+        raise
+    t2 = time.perf_counter()
+    cli = train_cli_finish(cli[0])
+    one = train[name]
+    d_loss = abs(res["first"]["loss"] / one["first"]["loss"] - 1)
+    d_norm = abs(res["first"]["grad_norm"] / one["first"]["grad_norm"] - 1)
+    log(f"{name} over the mesh vs phase 13 (one device, same weights and "
+        f"batch): first loss {res['first']['loss']:.6f} vs "
+        f"{one['first']['loss']:.6f} (rel {d_loss:.3g}, gate "
+        f"{DIST_BF16_LOSS_REL:.3g}), grad norm "
+        f"{res['first']['grad_norm']:.6f} vs {one['first']['grad_norm']:.6f} "
+        f"(rel {d_norm:.3g}, gate {DIST_BF16_GNORM_REL:.3g}); step p50 "
+        f"{res['step_ms_p50']} ms vs {one['step_ms_p50']} ms, "
+        f"{res['tokens_per_s']} vs {one['tokens_per_s']} tokens/s, model-"
+        f"FLOP share {res['model_flop_share']} vs {one['model_flop_share']}; "
+        f"init peak {res['init_peak_gb']} GB, step peak "
+        f"{res['step_peak_gb']} GB; one profiled step busy "
+        f"{res['profile'].get('device_busy_ms')} ms, share "
+        f"{res['profile'].get('device_busy_share')} of the p50 ({card})")
+    if d_loss > DIST_BF16_LOSS_REL or d_norm > DIST_BF16_GNORM_REL:
+        fail("phase 15 (b): the first step over the mesh is not one "
+             "device's within bf16 tolerance")
+    secs = {"a": t1 - t0, "b": t2 - t1,
+            "c_after_b": time.perf_counter() - t2}
+    log("phase 15 parts (s): " + json.dumps(
+        {k: round(v, 1) for k, v in secs.items()}))
+    return {name: res, "cli": cli}
+
+
+def dist_timing(gen, timer, dist: dict) -> dict:
+    """Phase 10's row at phase 15's per-position training shape, bf16: K2
+    at qwen2-1.5b's b 2 x s 2048 over one model position's heads (h 6 over
+    kv 1, hd 128; chunk 1024), held against its plain version first: the
+    kernel forward beside the plain forward and the plain recompute
+    backward, SDPA's forward (the library call) and forward + backward.
+    Launches: phase 15 (b)'s."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.layers import chunked_attention_vjp
+
+    bf16 = torch.bfloat16
+    name, b, s = TRAIN_CONFIGS[0]
+    b //= DIST_SHAPE[0]
+    q, k, v, g = (torch.randn(b, s, n, 128, generator=gen,
+                              device="cuda").to(bf16) for n in (6, 1, 1, 6))
+    c = compare(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+    if not c["ok"]:
+        fail(f"K2 at phase 15's position shape: {tol_text(c, bf16)}")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), gt)
+    bnd, by = bound_ms(*flash_cost(q, k), bf16)
+    ms = timer(lambda: flash_attention(q, k, v))
+    plain = timer(lambda: flash_attention_ref(q, k, v), 5)
+    plain_bwd = timer(lambda: chunked_attention_vjp(q, k, v, g, chunk=1024),
+                      5)
+    with torch.no_grad():
+        lib = timer(sdpa)
+    lib_fb = timer(sdpa_fwd_bwd)
+    launches = dist[name]["launches"]["flash_attention"]
+    log(f"K2 training position b={b} s={s} h=6 kv=1: {tol_text(c, bf16)}; "
+        f"kernel forward {ms:.4f} ms, plain forward {plain:.4f} ms, plain "
+        f"recompute backward {plain_bwd:.4f} ms, sdpa forward {lib:.4f} ms, "
+        f"sdpa forward + backward {lib_fb:.4f} ms, bound {bnd:.4f} ms "
+        f"({by}), {launches} launches in phase 15")
+    return {
+        "name": f"flash_attention (training position: {name}, b {b}, h 6, "
+                "kv 1)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+        "launches": launches, "max_abs_err": c["max_abs_err"], "ms": ms,
+        "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": lib}
+
+
 @contextlib.contextmanager
 def forced_splits(n: int):
     """Split K1's page walk into n ranges, one block each (the wrapper
@@ -3403,7 +3769,7 @@ def forced_splits(n: int):
 
 def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
                  explore: dict, door: dict, families: dict,
-                 train: dict, tp: dict) -> list:
+                 train: dict, tp: dict, dist: dict) -> list:
     """Kernel rows: K1 and K2 at the fused dense path's shapes, K3 at path
     B's, K4 at path A's; K1's and K2's launches are the fused dense
     path's, the public API phase's, the front door's and phases 11 and
@@ -3517,7 +3883,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         + explore["launches"]["flash_attention"]
         + door["launches"]["flash_attention"]
         + family_launches(families, "flash_attention")
-        + train["qwen2-1.5b"]["launches"]["flash_attention"],
+        + train["qwen2-1.5b"]["launches"]["flash_attention"]
+        + dist["qwen2-1.5b"]["launches"]["flash_attention"],
         "max_abs_err": f["max_abs_err"], "ms": f["ms"],
         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
@@ -3591,6 +3958,7 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
     family_timing(gen, timer, families)
     train_timing(gen, timer, train)
     rows += tp_timing(gen, timer, tp)
+    rows.append(dist_timing(gen, timer, dist))
     return rows
 
 
@@ -3733,8 +4101,9 @@ def main() -> None:
     families.update(timed("phase 12", phase_hybrid_moe))
     train = timed("phase 13", phase_train)
     tp = timed("phase 14", phase_tp)
+    dist = timed("phase 15", phase_dist, train)
     rows = timed("phase 10", phase_timing, gen, dense, legacy, ssm, explore,
-                 door, families, train, tp)
+                 door, families, train, tp, dist)
     log(f"total {time.perf_counter() - t0:.1f} s after the build; by phase "
         f"{json.dumps(secs)}")
     keys = ("prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",
@@ -3752,6 +4121,8 @@ def main() -> None:
     log("device explore: " + json.dumps(device_explore))
     log(f"BranchFS ({os.uname().nodename}): " + json.dumps(fs))
     log("training phase (13): " + json.dumps(train))
+    log("training over a mesh (15, data 2 x model 2 on one card): "
+        + json.dumps(dist))
     log("tensor-parallel phase (14, tp 2 on one card): " + json.dumps(
         {name: {path: {k: r[k] for k in (
             "prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",

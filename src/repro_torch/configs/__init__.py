@@ -20,7 +20,21 @@ from repro_torch.configs.qwen3_moe_235b_a22b import QWEN3_MOE_235B_A22B
 from repro_torch.configs.stablelm_12b import STABLELM_12B
 from repro_torch.configs.zamba2_7b import ZAMBA2_7B
 
-__all__ = ["ArchConfig", "get_config", "list_archs", "reduced",
-           "DBRX_132B", "GRANITE_8B", "MAMBA2_2_7B", "MUSICGEN_MEDIUM",
-           "NEMOTRON_4_15B", "PAPER_AGENTIC", "PIXTRAL_12B", "QWEN2_1_5B",
-           "QWEN3_MOE_235B_A22B", "STABLELM_12B", "ZAMBA2_7B"]
+#: the ten architectures the JAX package is assigned, in its order (the
+#: paper's own ``paper-agentic`` is registered beside them)
+ASSIGNED_ARCHS = [
+    "granite-8b",
+    "nemotron-4-15b",
+    "stablelm-12b",
+    "qwen2-1.5b",
+    "pixtral-12b",
+    "zamba2-7b",
+    "qwen3-moe-235b-a22b",
+    "dbrx-132b",
+    "musicgen-medium",
+    "mamba2-2.7b",
+]
+
+__all__ = [
+    "ArchConfig", "get_config", "list_archs", "reduced", "ASSIGNED_ARCHS",
+]

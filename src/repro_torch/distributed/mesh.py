@@ -1,8 +1,7 @@
 """Mesh and axis conventions of the port.
 
-Counterparts of ``ParallelPlan``, ``SINGLE_DEVICE``, ``serving_mesh`` and
-``serving_plan`` in ``repro/distributed/mesh.py`` (``plan_from_mesh`` and
-the plan's data-parallel sizes come with training across cards).
+Counterparts of ``ParallelPlan``, ``SINGLE_DEVICE``, ``plan_from_mesh``,
+``serving_mesh`` and ``serving_plan`` in ``repro/distributed/mesh.py``.
 Axis names are the JAX package's:
 
   ``pod``   — cross-pod data parallelism
@@ -16,7 +15,18 @@ it: a sharded pass issues each shard's work on its own device (launches
 are asynchronous, so shards on different cards overlap) and combines the
 partial results through :mod:`repro_torch.distributed.collectives`.  A
 mesh may name one device several times: every shard then runs there,
-which is how the CPU tests and a one-card run drive tensor parallelism.
+which is how the CPU tests and a one-card run drive tensor and data
+parallelism.
+
+A :class:`NamedSharding` is the port's counterpart of JAX's: a frozen
+(mesh, spec) record saying how a tensor is laid out over the mesh.  The
+port stores a sharded parameter whole on the sharding's first device
+(:meth:`NamedSharding.home`), whatever the spec; each mesh position takes
+its block at use (a view there, a copy on another card) and autograd sums
+the blocks' gradients back into it.  So a mesh of several cards splits the
+compute but not the memory: the parameters, the optimizer moments and the
+gradient accumulator lie whole on the first card (storing each block on
+its positions' card is ROADMAP §1's).
 """
 
 from __future__ import annotations
@@ -53,6 +63,21 @@ class DeviceMesh:
 
 
 @dataclass(frozen=True)
+class NamedSharding:
+    """How a tensor lies over ``mesh``: ``spec`` has one entry per dim, an
+    axis name, a tuple of axis names or ``None`` (replicated)."""
+    mesh: DeviceMesh
+    spec: Tuple[Any, ...]
+
+    @property
+    def home(self) -> torch.device:
+        """The device the port stores the whole tensor on: the mesh's
+        first, whatever ``spec`` says (the spec is computed and checked,
+        not yet used to split storage)."""
+        return self.mesh.devices.flat[0]
+
+
+@dataclass(frozen=True)
 class ParallelPlan:
     mesh: Optional[DeviceMesh] = None
     dp_axes: Tuple[str, ...] = ()
@@ -63,9 +88,64 @@ class ParallelPlan:
         return self.mesh is not None
 
     @property
+    def dp(self) -> Optional[Tuple[str, ...]]:
+        return self.dp_axes if self.dp_axes else None
+
+    @property
+    def dp_size(self) -> int:
+        if not self.mesh:
+            return 1
+        n = 1
+        for a in self.dp_axes:
+            n *= self.mesh.shape[a]
+        return n
+
+    @property
     def tp_size(self) -> int:
         return self.mesh.shape[self.tp_axis] if (
             self.mesh and self.tp_axis) else 1
+
+    def constrain(self, x: torch.Tensor, *spec: Any) -> torch.Tensor:
+        """``x`` itself: one host process places every shard, so there is
+        no propagation to steer (``with_sharding_constraint`` in the JAX
+        package).  With a mesh the spec is checked against ``x``'s shape
+        first: at most one entry per dim, each naming axes of the mesh."""
+        if self.mesh is None:
+            return x
+        if len(spec) > x.dim():
+            raise ValueError(f"spec {spec} has more entries than the "
+                             f"{x.dim()} dims of a {tuple(x.shape)} tensor")
+        for axis in spec:
+            for a in (axis if isinstance(axis, (tuple, list)) else (axis,)):
+                if a is not None and a not in self.mesh.axis_names:
+                    raise ValueError(f"spec {spec} names {a!r}, not an axis "
+                                     f"of {self.mesh.axis_names}")
+        return x
+
+    def sharding(self, *spec: Any) -> Optional[NamedSharding]:
+        if self.mesh is None:
+            return None
+        return NamedSharding(self.mesh, tuple(spec))
+
+    @property
+    def grid(self) -> Tuple[Tuple[torch.device, ...], ...]:
+        """Every mesh position's device, one row per data position (the
+        data axes flattened in mesh order) and one column per tp rank:
+        ``grid[d][r]``.  An axis that is neither (a serving plan's ``data``)
+        replicates the work, so its index 0 stands for it, as in
+        :attr:`devices`.  The single-device plan has no positions."""
+        if self.mesh is None:
+            return ()
+        names = self.mesh.axis_names
+        order = [names.index(a) for a in self.dp_axes]
+        order += [names.index(self.tp_axis)] if self.tp_axis else []
+        idx = tuple(slice(None) if i in order else 0
+                    for i in range(len(names)))
+        kept = sorted(order)
+        arr = self.mesh.devices[idx].transpose(
+            [kept.index(i) for i in order]).reshape(self.dp_size,
+                                                    self.tp_size)
+        return tuple(tuple(row) for row in arr)
 
     @property
     def devices(self) -> Tuple[torch.device, ...]:
@@ -81,6 +161,16 @@ class ParallelPlan:
 
 
 SINGLE_DEVICE = ParallelPlan()
+
+
+def plan_from_mesh(mesh: DeviceMesh) -> ParallelPlan:
+    """The standard plan from a mesh's axis names."""
+    axes = mesh.axis_names
+    dp = tuple(a for a in ("pod", "data") if a in axes)
+    tp = "model" if "model" in axes else None
+    if tp is None and "tp" in axes:
+        tp = "tp"                      # serving meshes (see serving_mesh)
+    return ParallelPlan(mesh=mesh, dp_axes=dp, tp_axis=tp)
 
 
 # ---------------------------------------------------------------------------

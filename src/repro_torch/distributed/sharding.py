@@ -1,29 +1,35 @@
-"""Sharding rules: map every parameter leaf to a spec on the (pod, data,
-model) mesh, and split a parameter tree into its tensor-parallel shards.
+"""Sharding rules: map every parameter, batch and cache leaf to a spec on
+the (pod, data, model) mesh, and split a parameter tree into its
+tensor-parallel shards.
 
-Counterparts of ``sanitize``, ``spec_for_param``, ``_retarget``,
-``serve_param_specs`` and ``kv_page_spec`` in
-``repro/distributed/sharding.py``, with the same rules (DESIGN §5): FSDP
-shards a parameter's d_model-like dim over ``data``; heads, d_ff, experts
-and vocab shard over ``model``; layer-stacked leaves keep their leading
-``L`` dim unsharded.  A spec is a tuple with one entry per dimension: an
-axis name, a tuple of axis names, or ``None`` (replicated).  Paths are the
-tuples of dict keys from the tree's root to the leaf.
+Counterparts of ``sanitize``, ``spec_for_param``, ``param_shardings``,
+``shard_params``, ``batch_spec``/``batch_shardings``,
+``cache_spec``/``state_shardings``, ``_retarget``, ``serve_param_specs``
+and ``kv_page_spec`` in ``repro/distributed/sharding.py``, with the same
+rules (DESIGN §5): FSDP shards a parameter's d_model-like dim over
+``data``; heads, d_ff, experts and vocab shard over ``model``;
+layer-stacked leaves keep their leading ``L`` dim unsharded; batches
+shard over ``(pod, data)``.  A spec is a tuple with one entry per
+dimension: an axis name, a tuple of axis names, or ``None`` (replicated).
+Paths are the tuples of dict keys from the tree's root to the leaf.
 
-:func:`shard_params` is the port's placement: one host process holds a
-parameter tree per shard, each leaf cut along its tp dimension (a view of
-the full leaf where the shard shares its device, a copy on another
-device) and replicated leaves shared where the device is the same.
+Placement.  For a serving plan :func:`shard_params` holds a parameter tree
+per tp shard, each leaf cut along its tp dimension (a view of the full
+leaf where the shard shares its device, a copy on another device).  For a
+training plan it places each leaf as :func:`param_shardings` says: whole,
+on the sharding's home device (:class:`NamedSharding`), and
+:func:`position_params` gives each mesh position its block at use, as
+views and copies that autograd differentiates through.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.mesh import ParallelPlan
+from repro_torch.distributed.mesh import NamedSharding, ParallelPlan
 
 Spec = Tuple[Any, ...]
 Path = Tuple[str, ...]
@@ -52,12 +58,15 @@ def _axis_size(plan: ParallelPlan, axis: Any) -> int:
 
 def sanitize(plan: ParallelPlan, spec: Spec, shape: Tuple[int, ...]) -> Spec:
     """Drop axis assignments whose size does not divide the dim (the dim
-    falls back to replicated); the result has one entry per dim."""
+    falls back to replicated); the result has one entry per dim, a tuple of
+    one axis written as that axis (as ``PartitionSpec`` writes it)."""
     out = []
     for dim, axis in zip(shape, tuple(spec) + (None,) * (len(shape)
                                                          - len(spec))):
         if axis is not None and dim % _axis_size(plan, axis) != 0:
             axis = None
+        if isinstance(axis, (tuple, list)):
+            axis = axis[0] if len(axis) == 1 else tuple(axis)
         out.append(axis)
     return tuple(out)
 
@@ -129,6 +138,136 @@ def spec_for_param(cfg: ArchConfig, path: Path, shape: Tuple[int, ...]
     return lead + (None,) * (len(shape) - len(lead))
 
 
+def param_shardings(cfg: ArchConfig, plan: ParallelPlan, params: Any,
+                    zero1: bool = False, drop_data: bool = False) -> Any:
+    """:class:`NamedSharding` tree matching ``params`` (``None`` leaves
+    without a mesh).  Also right for optimizer-state trees that mirror the
+    parameter tree (AdamW's ``mu``/``nu``): the rules key off leaf names
+    and ranks.  With ``zero1`` (or for mu/nu leaves on a mesh with a
+    ``pod`` axis) the FSDP dim shards over ``("pod", "data")``;
+    ``drop_data`` replicates over ``data`` (TP-only residency)."""
+    if plan.mesh is None:
+        return tree_map_with_path(lambda path, leaf: None, params)
+    has_pod = "pod" in plan.mesh.axis_names
+
+    def one(path: Path, leaf: torch.Tensor) -> NamedSharding:
+        shape = tuple(leaf.shape)
+        spec = spec_for_param(cfg, path, shape)
+        if has_pod and (zero1 or "mu" in path or "nu" in path):
+            spec = tuple(("pod", "data") if a == "data" else a
+                         for a in spec)
+        if drop_data:
+            spec = tuple(None if a == "data" else a for a in spec)
+        return NamedSharding(plan.mesh, sanitize(plan, spec, shape))
+
+    return tree_map_with_path(one, params)
+
+
+def place(x: torch.Tensor, sharding: Optional[NamedSharding]
+          ) -> torch.Tensor:
+    """``x`` laid out as ``sharding`` says: whole on its home device (the
+    port's storage of a sharded leaf); ``x`` itself without a sharding."""
+    return x if sharding is None else x.to(sharding.home)
+
+
+def batch_spec(cfg: ArchConfig, plan: ParallelPlan, name: str,
+               ndim: int) -> Spec:
+    """Batch-major inputs (tokens, targets, frontend_embed) shard their
+    batch dim over the data axes; ``pos`` is ``[b]``."""
+    dp = plan.dp
+    if name == "pos":
+        return (dp,)
+    return (dp,) + (None,) * (ndim - 1)
+
+
+def batch_shardings(cfg: ArchConfig, plan: ParallelPlan,
+                    batch: Dict[str, Any]) -> Dict[str, Any]:
+    if plan.mesh is None:
+        return {k: None for k in batch}
+    return {k: NamedSharding(plan.mesh, sanitize(
+        plan, batch_spec(cfg, plan, k, len(v.shape)), tuple(v.shape)))
+            for k, v in batch.items()}
+
+
+def cache_spec(cfg: ArchConfig, plan: ParallelPlan, name: str,
+               shape: Tuple[int, ...]) -> Spec:
+    """Decode-cache leaves: KV ``[L, b, S, kv, hd]`` shards batch over
+    ``data`` and sequence over ``model``; the conv state ``[L, b, ck-1,
+    conv_dim]`` its channels over ``model``; the SSM state ``[L, b, H, N,
+    P]`` its heads over ``model``."""
+    if name in ("k", "v"):
+        return (None, "data", "model", None, None)
+    if name == "conv":
+        return (None, "data", None, "model")
+    if name == "ssm":
+        return (None, "data", "model", None, None)
+    return (None,) * len(shape)
+
+
+def state_shardings(cfg: ArchConfig, plan: ParallelPlan,
+                    cache: Dict[str, Any]) -> Dict[str, Any]:
+    if plan.mesh is None:
+        return {k: None for k in cache}
+    return {k: NamedSharding(plan.mesh, sanitize(
+        plan, cache_spec(cfg, plan, k, tuple(v.shape)), tuple(v.shape)))
+            for k, v in cache.items()}
+
+
+# ---------------------------------------------------------------------------
+# training: each mesh position's block of the parameters
+# ---------------------------------------------------------------------------
+
+def split_range(n: int, parts: int, rank: int) -> Tuple[int, int]:
+    """(start, size) of part ``rank`` of ``n`` split into ``parts``
+    contiguous parts, the first ``n % parts`` one longer (a dim that does
+    not divide still has each index in exactly one part)."""
+    base, extra = divmod(n, parts)
+    return rank * base + min(rank, extra), base + (rank < extra)
+
+
+def _model_dim(cfg: ArchConfig, path: Path, shape: Tuple[int, ...]
+               ) -> Optional[int]:
+    spec = spec_for_param(cfg, path, shape)
+    return spec.index("model") if "model" in spec else None
+
+
+def position_params(cfg: ArchConfig, params: Params, rank: int, tp: int,
+                    device: torch.device) -> Params:
+    """Tp rank ``rank`` of ``tp``'s block of the parameters on ``device``,
+    for a training forward: each leaf cut along its ``model`` dim
+    (:func:`spec_for_param`) into contiguous parts (:func:`split_range`:
+    heads, d_ff, experts, vocab), replicated otherwise.  The kv-head
+    leaves follow the query heads: a rank whose heads lie in one kv group
+    takes that kv head, one whose heads span whole groups takes theirs.
+    The data axes cut nothing: FSDP's gather at use is the whole leaf.  A
+    view of the leaf on its own device, a copy on another; either way
+    differentiable into the leaf."""
+    if tp == 1:
+        return tree_map_with_path(lambda path, x: x.to(device), params)
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if h:
+        q0, nq = split_range(h, tp, rank)
+        g = h // kv
+        k0, k1 = q0 // g, -(-(q0 + nq) // g)
+        if not (nq and (k1 - k0 == 1 or (q0 % g == 0 and nq % g == 0))):
+            raise ValueError(
+                f"tp={tp} splits {h} heads over {kv} kv heads so that rank "
+                f"{rank}'s heads [{q0}, {q0 + nq}) do not map onto whole kv "
+                "groups or one group")
+
+    def one(path: Path, x: torch.Tensor) -> torch.Tensor:
+        dim = _model_dim(cfg, path, tuple(x.shape))
+        if dim is not None:
+            if path[-1] in ("wk", "wv", "bk", "bv"):
+                start, size = k0, k1 - k0
+            else:
+                start, size = split_range(x.shape[dim], tp, rank)
+            x = x.narrow(dim, start, size)
+        return x.to(device)
+
+    return tree_map_with_path(one, params)
+
+
 # ---------------------------------------------------------------------------
 # serving (tensor-parallel decode over paged KV)
 # ---------------------------------------------------------------------------
@@ -183,10 +322,15 @@ def shard_leaf(x: torch.Tensor, spec: Spec, tp_axis: str, rank: int,
 
 
 def shard_params(cfg: ArchConfig, plan: ParallelPlan, params: Params,
-                 specs: Optional[Any] = None) -> List[Params]:
-    """Split the full parameter tree into one tree per tp shard, each on
-    its device (``plan.devices``), along ``specs`` (the serving specs by
-    default)."""
+                 specs: Optional[Any] = None) -> Any:
+    """A serving plan (no data axes): the full parameter tree split into
+    one tree per tp shard, each on its device (``plan.devices``), along
+    ``specs`` (the serving specs by default).  A training plan: the tree
+    with each leaf placed as :func:`param_shardings` says."""
+    if plan.dp_axes:
+        sh = param_shardings(cfg, plan, params)
+        return tree_map_with_path(
+            lambda path, leaf: place(leaf, _at(sh, path)), params)
     if specs is None:
         specs = serve_param_specs(cfg, plan, params)
     out = []

@@ -11,3 +11,13 @@
 A wrapper runs its plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches its kernel or raises.
 """
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_attention import (
+    paged_attention,
+    paged_chunk_attention,
+)
+from repro_torch.kernels.ssd_scan import ssd_scan
+
+__all__ = ["flash_attention", "paged_attention",
+           "paged_chunk_attention", "ssd_scan"]

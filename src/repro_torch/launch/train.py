@@ -1,4 +1,4 @@
-"""Training entry point of the port, on one card::
+"""Training entry point of the port::
 
     python -m repro_torch.launch.train --arch qwen2-1.5b --batch 4 --seq 2048
 
@@ -12,8 +12,16 @@ the run goes through ``FaultTolerantTrainer`` with a ``CheckpointManager``
 under ``--ckpt-dir`` (by default ``branchx-ckpt`` in the temporary
 directory).  It prints ``done: step N loss X rollbacks R``.
 
-Not ported yet, and refused with exit 2: ``--distributed`` (multi-GPU
-training, ROADMAP).
+``--distributed`` plans a mesh over the visible cards when there are more
+than one, as the JAX package plans over its devices: ``plan_mesh``,
+``Model(cfg, plan=plan)``, the parameters and the optimizer state placed
+as ``param_shardings`` says, and one process driving every position (the
+data pipeline is shard 0 of 1).  It prints ``training mesh: ...`` first.
+With one device (one card, or ``--device cpu``) it trains single-device
+and says so.  The mesh splits the compute, not the memory: the port
+stores every parameter, optimizer moment and gradient accumulator whole on
+the mesh's first card (``NamedSharding.home``), so a model that does not
+fit on one card does not train over several either (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -21,10 +29,19 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import sys
 import tempfile
+from typing import List
 
 import torch
+
+
+def distributed_devices(device: torch.device) -> List[torch.device]:
+    """The devices ``--distributed`` plans over: every visible card for a
+    bare ``cuda``, else the one device named."""
+    if device.type == "cuda" and device.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def main(argv=None) -> int:
@@ -43,21 +60,22 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config, float32, CPU-sized")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-GPU training (not ported yet: exits 2)")
+                    help="plan a (data, model) mesh over the visible "
+                    "cards: it splits the compute; the state stays whole "
+                    "on the first card")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without one) or cpu")
     args = ap.parse_args(argv)
-    if args.distributed:
-        print("--distributed: multi-GPU training is not ported yet "
-              "(ROADMAP, modules to port: multi-GPU)", file=sys.stderr)
-        return 2
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import SyntheticLMPipeline
     from repro_torch.device import resolve_device
+    from repro_torch.distributed.mesh import SINGLE_DEVICE
+    from repro_torch.distributed.sharding import shard_params
     from repro_torch.models import Model
     from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.runtime.elastic import plan_mesh
     from repro_torch.runtime.fault import FaultTolerantTrainer
     from repro_torch.runtime.train_loop import build_train_step, \
         init_train_state
@@ -67,7 +85,17 @@ def main(argv=None) -> int:
     if args.smoke:
         cfg = dataclasses.replace(reduced(cfg), dtype="float32")
         args.batch, args.seq, args.steps = 2, 32, 10
-    model = Model(cfg, attn_chunk=min(256, args.seq),
+    plan = SINGLE_DEVICE
+    if args.distributed:
+        devices = distributed_devices(device)
+        if len(devices) > 1:
+            plan = plan_mesh(devices)
+            device = plan.grid[0][0]
+            print(f"training mesh: {plan.mesh}")
+        else:
+            print(f"--distributed with one visible device: training "
+                  f"single-device on {device}")
+    model = Model(cfg, plan=plan, attn_chunk=min(256, args.seq),
                   loss_chunk=min(128, args.seq))
     opt = adamw(cosine_warmup(args.lr, max(args.steps // 20, 1),
                               args.steps))
@@ -76,8 +104,15 @@ def main(argv=None) -> int:
     state = init_train_state(
         model, opt, torch.Generator(device=device).manual_seed(0),
         compress=args.compress_grads)
+    if plan.is_distributed:
+        # the optimizer state mirrors the parameter tree: the same rules
+        # place it (mu/nu over pod too on a multi-pod mesh)
+        state = state._replace(
+            params=shard_params(cfg, plan, state.params),
+            opt_state=shard_params(cfg, plan, state.opt_state))
+    # one process drives every mesh position: it reads shard 0 of 1
     data = SyntheticLMPipeline(cfg, batch=args.batch, seq=args.seq, seed=7,
-                               device=device)
+                               shard=0, num_shards=1, device=device)
     trainer = FaultTolerantTrainer(
         step_fn=step, state=state, data=data,
         ckpt=CheckpointManager(args.ckpt_dir), ckpt_every=args.ckpt_every)

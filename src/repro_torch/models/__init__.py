@@ -1,6 +1,10 @@
-"""Dense transformer model of the port (PyTorch counterparts of
-``repro.models``)."""
+"""Model definitions of the port: every family of the JAX package's
+``repro.models`` (dense / MoE / SSM / hybrid / VLM / audio) in PyTorch."""
 
-from repro_torch.models.model import Model
+from repro_torch.models.model import (
+    Model,
+    decode_state_specs,
+    init_params,
+)
 
-__all__ = ["Model"]
+__all__ = ["Model", "decode_state_specs", "init_params"]

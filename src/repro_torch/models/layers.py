@@ -243,14 +243,25 @@ def chunked_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(dq), torch.cat(dk), torch.cat(dv)
 
 
+def attention_block_kv(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                       positions: torch.Tensor, chunk: int = 1024,
+                       attn: Optional[Callable] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention over the whole sequence: the projections, the flash
+    attention kernel (its backward the chunked recompute, ``chunk`` query
+    rows at a time; ``attn`` in its place where a caller binds the kernel
+    itself), then ``wo``.  Returns (out, k, v)."""
+    q, k, v = qkv_project(cfg, p, x, positions)
+    a = (attn or flash_attention)(q, k, v, chunk)
+    return attn_out(a, p["wo"]), k, v
+
+
 def attention_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
                     positions: torch.Tensor, chunk: int = 1024
                     ) -> torch.Tensor:
-    """Training attention over the whole sequence: the projections, the
-    flash attention kernel (its backward the chunked recompute, ``chunk``
-    query rows at a time), then ``wo``."""
-    q, k, v = qkv_project(cfg, p, x, positions)
-    return attn_out(flash_attention(q, k, v, chunk), p["wo"])
+    """Training attention over the whole sequence (:func:`attention_block_kv`
+    without the k and v)."""
+    return attention_block_kv(cfg, p, x, positions, chunk)[0]
 
 
 def decode_attention_dense(q: torch.Tensor, k_cache: torch.Tensor,

@@ -8,25 +8,42 @@ recurrent state, stepped out of place) and hybrid (both: the Mamba2 state
 out of place, the shared block's KV in place).  The paged ``ServeEngine``
 serves the dense, vlm (text) and moe families; ssm and hybrid branch
 their caches through ``BranchStore``.
+
+With a training ``plan`` (``plan_from_mesh``), ``loss`` is the one-process
+sharded pass over the mesh (``models/transformer.py``): each data
+position's token sum and count (:meth:`Model.position_loss`), combined in
+position order (:meth:`Model.combine`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.collectives import psum
+from repro_torch.distributed.mesh import SINGLE_DEVICE, ParallelPlan
 from repro_torch.models import decode as D
 from repro_torch.models import transformer as T
 
 Params = Dict[str, Any]
 
+# re-exported for the launch layer, as the JAX package's
+decode_state_specs = D.decode_state_specs
+init_decode_state = D.init_decode_state
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator) -> Params:
+    """Random weights from a seeded generator, on its device."""
+    return T.init_transformer(cfg, generator)
+
 
 @dataclass
 class Model:
     cfg: ArchConfig
+    plan: ParallelPlan = field(default_factory=lambda: SINGLE_DEVICE)
     remat: bool = True
     attn_chunk: int = 1024
     loss_chunk: int = 512
@@ -34,23 +51,61 @@ class Model:
 
     def __post_init__(self):
         T.check_servable(self.cfg)
+        T.check_plan(self.cfg, self.plan)
 
     def init(self, generator: torch.Generator) -> Params:
         """Random weights from a seeded generator, on its device."""
-        return T.init_transformer(self.cfg, generator)
+        return init_params(self.cfg, generator)
 
     # -- training ---------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """``batch``: ``tokens``, ``targets`` and, for the VLM stub,
         ``frontend_embed``.  Returns (total, ``{"xent", "moe_aux"}``), f32
-        scalars on the batch's device; no host sync."""
+        scalars on the batch's device; no host sync.  Over a mesh: each data
+        position's :meth:`position_loss`, combined (:meth:`combine`)."""
+        if self.plan.is_distributed:
+            return self.combine([self.position_loss(params, batch, d)
+                                 for d in range(self.plan.dp_size)])
         s = batch["tokens"].shape[1]
         h, aux = T.forward(self.cfg, params, batch["tokens"],
                            batch.get("frontend_embed"), remat=self.remat,
                            attn_chunk=min(self.attn_chunk, s))
         xent = T.token_loss(self.cfg, params, h, batch["targets"],
                             loss_chunk=min(self.loss_chunk, s))
+        return xent + self.moe_aux_weight * aux, {"xent": xent,
+                                                  "moe_aux": aux}
+
+    def position_loss(self, params: Params, batch: Dict[str, torch.Tensor],
+                      d: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+        """Data position ``d``'s share of the loss over the plan's mesh: (its
+        summed token cross-entropy, its count of positions carrying loss,
+        its MoE aux loss), f32 scalars on ``plan.grid[d][0]``."""
+        plan = self.plan
+        tokens, targets, fe = T.position_rows(
+            plan, batch["tokens"], batch["targets"],
+            batch.get("frontend_embed"))[d]
+        s = tokens.shape[1]
+        trees = T.position_trees(self.cfg, params, plan, d)
+        h, aux = T.position_forward(self.cfg, params, plan, d, tokens, fe,
+                                    trees=trees, remat=self.remat,
+                                    attn_chunk=min(self.attn_chunk, s))
+        nll, count = T.position_nll(self.cfg, trees, h, targets,
+                                    loss_chunk=min(self.loss_chunk, s))
+        return nll, count, aux
+
+    def combine(self, parts: Sequence[Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total, ``{"xent", "moe_aux"}``) from the data positions'
+        :meth:`position_loss` triples, summed in position order on the
+        first position's device: the token sums over the counts (the
+        single-device loss whatever the mask) and the mean aux loss (the
+        GShard convention of the JAX package)."""
+        nll, count, aux = (psum(list(x)) for x in zip(*parts))
+        xent = nll / torch.clamp(count, min=1.0)
+        aux = aux / len(parts)
         return xent + self.moe_aux_weight * aux, {"xent": xent,
                                                   "moe_aux": aux}
 

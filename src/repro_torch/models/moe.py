@@ -25,6 +25,11 @@ Counterparts of ``init_moe``, ``_capacity``, ``moe_apply_local`` and
   rounded once; ``aux`` is averaged over the shards.  Capacity counts the
   call's rows against the full expert set, so drops and tie-breaks are
   the single device's.
+* Data parallelism (``dp_axes``): the batch splits over the data
+  positions (contiguous rows, as the JAX package's ``P(dp)``), each
+  position routes its own rows with its own capacity over its row of the
+  mesh, and ``aux`` is the mean over the data and model positions (the
+  GShard convention of the JAX package's ``pmean``).
 
 Nothing here syncs with the host.
 """
@@ -170,27 +175,38 @@ def moe_apply_sharded(cfg: ArchConfig, parts: Sequence[Params],
 
 
 def moe_block(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
-              mesh: Any = None, tp_axis: Optional[str] = None
+              mesh: Any = None, dp_axes: Tuple[str, ...] = (),
+              tp_axis: Optional[str] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN over ``x`` ``[b, s, d]``: every token of the call routed
     together.  With a mesh and its ``tp_axis``, the experts of ``p`` shard
-    over that axis's devices (:func:`moe_apply_sharded`) and the result
-    lands on ``x``'s device.  Returns (y ``[b, s, d]``, aux)."""
+    over that axis's devices (:func:`moe_apply_sharded`); with ``dp_axes``
+    too, each data position routes its rows of the batch over its row of
+    the mesh.  The result lands on ``x``'s device.  Returns (y ``[b, s,
+    d]``, aux)."""
     b, s, d = x.shape
     if mesh is None or tp_axis is None:
         y, aux = moe_apply_local(cfg, x.reshape(-1, d), p["router"],
                                  p.get("wg"), p["wu"], p["wd"])
         return y.reshape(b, s, d), aux
-    plan = ParallelPlan(mesh=mesh, tp_axis=tp_axis)
-    tp = plan.tp_size
+    plan = ParallelPlan(mesh=mesh, dp_axes=tuple(dp_axes), tp_axis=tp_axis)
+    tp, n_dp = plan.tp_size, plan.dp_size
     if cfg.num_experts % tp:
         raise ValueError(f"{cfg.num_experts} experts must divide tp={tp}")
-    parts = [{k: shard_leaf(v, (None,) if k == "router" else (tp_axis,),
-                            tp_axis, r, tp, dev) for k, v in p.items()}
-             for r, dev in enumerate(plan.devices)]
-    y, aux = moe_apply_sharded(cfg, parts,
-                               broadcast(x.reshape(-1, d), plan.devices))
-    return y.reshape(b, s, d).to(x.device), aux.to(x.device)
+    if b % n_dp:
+        raise ValueError(f"batch {b} does not split over {n_dp} data "
+                         "positions")
+    rows = b // n_dp
+    ys, auxes = [], []
+    for i, devices in enumerate(plan.grid):
+        parts = [{k: shard_leaf(v, (None,) if k == "router" else (tp_axis,),
+                                tp_axis, r, tp, dev) for k, v in p.items()}
+                 for r, dev in enumerate(devices)]
+        x_i = x[i * rows:(i + 1) * rows].reshape(-1, d)
+        y, aux = moe_apply_sharded(cfg, parts, broadcast(x_i, devices))
+        ys.append(y.reshape(rows, s, d).to(x.device))
+        auxes.append(aux.to(x.device))
+    return torch.cat(ys), psum(auxes) / n_dp
 
 
 def ffn(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:

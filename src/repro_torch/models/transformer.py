@@ -8,16 +8,37 @@ every family the JAX package registers: dense, vlm (stub frontend), audio (sever
 ONE weight-shared attention + MLP block, ``shared``, applied every
 ``attn_every`` layers on ``concat([h, h0])``).  Parameters are a plain dict
 of tensors in the JAX package's layout, layers stacked ``[L, ...]``.
+
+**Over a mesh** (a training plan: ``plan_from_mesh``), one host process
+runs the pass the JAX package leaves to XLA's partitioner, one data
+position at a time (:func:`position_forward`, :func:`position_nll`;
+``Model.loss`` combines the positions).  The batch splits over the data
+positions (``batch_spec``: contiguous rows, position ``d`` on
+``plan.grid[d][0]``).  Inside each data position every
+attention and FFN sublayer runs shard-locally over the model positions
+(:mod:`models.sharded`, the serving engine's passes) on each position's
+block of the parameters (:func:`distributed.sharding.position_params`:
+views of the leaves, or copies on another card) and the partials are
+summed in shard order.  The loss combines the positions' token sums and
+counts (:func:`position_nll`), so it is the single-device loss whatever
+the mask; the MoE aux loss is the mean over the data positions (the
+GShard convention of the JAX package).  The dense, vlm, audio and moe
+families split over both axes; ssm and hybrid over the data axis only
+(their model-axis split is ROADMAP §1's next item).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.collectives import broadcast
+from repro_torch.distributed.mesh import ParallelPlan
+from repro_torch.distributed.sharding import position_params
 from repro_torch.models import layers as L
+from repro_torch.models import sharded
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.models.ssm import init_mamba, mamba_block
 
@@ -79,6 +100,16 @@ def check_engine_servable(cfg: ArchConfig) -> None:
             f"{'/'.join(ENGINE_FAMILIES)} (text) families; the SSM and "
             "hybrid families run through Model.prefill / decode_step and "
             "BranchStore (the JAX package's engine refuses them too)")
+
+
+def check_plan(cfg: ArchConfig, plan: ParallelPlan) -> None:
+    """Refuse a plan the port cannot train on: the SSM and hybrid families
+    split over the data axis only."""
+    if plan.tp_size > 1 and cfg.family in SSM_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): the port trains the SSM and hybrid "
+            f"families over the data axis only; their model-axis split "
+            f"(tp={plan.tp_size}) is not ported yet (ROADMAP §1)")
 
 
 def init_transformer(cfg: ArchConfig, gen: torch.Generator) -> Params:
@@ -271,16 +302,71 @@ def forward(cfg: ArchConfig, p: Params, tokens: torch.Tensor,
     return L.rms_norm(h, p["final_norm"], cfg.norm_eps), aux
 
 
+def position_rows(plan: ParallelPlan, *xs: Optional[torch.Tensor]
+                  ) -> List[List[Optional[torch.Tensor]]]:
+    """Each data position's rows of the batch-major ``xs`` (``batch_spec``:
+    contiguous, in position order), on the position's first device."""
+    n = plan.dp_size
+    b = next(x for x in xs if x is not None).shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} does not split over {n} data "
+                         "positions")
+    rows = b // n
+    return [[None if x is None else x[d * rows:(d + 1) * rows].to(
+        plan.grid[d][0]) for x in xs] for d in range(n)]
+
+
+def position_trees(cfg: ArchConfig, p: Params, plan: ParallelPlan,
+                   d: int) -> List[Params]:
+    """Data position ``d``'s parameter block for each of its tp ranks."""
+    row = plan.grid[d]
+    return [position_params(cfg, p, r, len(row), dev)
+            for r, dev in enumerate(row)]
+
+
+def position_forward(cfg: ArchConfig, p: Params, plan: ParallelPlan, d: int,
+                     tokens: torch.Tensor,
+                     frontend_embed: Optional[torch.Tensor] = None, *,
+                     trees: Optional[List[Params]] = None,
+                     remat: bool = True, attn_chunk: int = 1024
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Data position ``d``'s forward over its rows (on ``plan.grid[d][0]``):
+    the single-device forward on its block at one tp rank, else every layer
+    shard-locally over its tp ranks (:func:`sharded.layer`) with the
+    residual on rank 0, remat around each layer as :func:`forward`."""
+    check_plan(cfg, plan)
+    trees = position_trees(cfg, p, plan, d) if trees is None else trees
+    if len(trees) == 1:
+        return forward(cfg, trees[0], tokens, frontend_embed, remat=remat,
+                       attn_chunk=attn_chunk)
+    home = plan.grid[d][0]
+    # the embedding and the image projection whole (FSDP's gather at use)
+    emb = {k: p[k].to(home) for k in ("embed", "frontend_proj") if k in p}
+    h = embed_tokens(cfg, emb, tokens, frontend_embed)
+    positions = broadcast(torch.arange(h.shape[1], device=home),
+                          [sharded.shard_device(t) for t in trees])
+    aux = h.new_zeros((), dtype=torch.float32)
+    wrap = L.remat if remat else (lambda fn, *args: fn(*args))
+    per_rank = [L.unstack_layers(t["layers"], cfg.num_layers) for t in trees]
+    for i in range(cfg.num_layers):
+        h, a = wrap(lambda h_, lps_: sharded.layer(cfg, lps_, h_, positions,
+                                                   attn_chunk),
+                    h, [layers[i] for layers in per_rank])
+        aux = aux + a
+    return L.rms_norm(h, trees[0]["final_norm"], cfg.norm_eps), aux
+
+
 # ---------------------------------------------------------------------------
 # loss (sequence-chunked cross-entropy: the f32 logits of one chunk at a
 # time)
 # ---------------------------------------------------------------------------
 
-def _chunk_nll(cfg: ArchConfig, p: Params, h_c: torch.Tensor,
-               t_c: torch.Tensor, v_c: torch.Tensor) -> torch.Tensor:
-    """The summed next-token NLL of one chunk (``v_c`` masks positions;
-    several codebooks averaged)."""
-    logits = lm_head(cfg, p, h_c).float()
+def _chunk_nll(cfg: ArchConfig, head: Callable[[torch.Tensor], torch.Tensor],
+               h_c: torch.Tensor, t_c: torch.Tensor, v_c: torch.Tensor
+               ) -> torch.Tensor:
+    """The summed next-token NLL of one chunk under the output ``head``
+    (``v_c`` masks positions; several codebooks averaged)."""
+    logits = head(h_c).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, t_c[..., None].long())[..., 0]
     nll = logz - gold                                   # [b, c] or [b, c, cb]
@@ -289,27 +375,57 @@ def _chunk_nll(cfg: ArchConfig, p: Params, h_c: torch.Tensor,
     return torch.sum(nll * v_c)
 
 
-def token_loss(cfg: ArchConfig, p: Params, h: torch.Tensor,
-               targets: torch.Tensor, *, loss_chunk: int = 512
-               ) -> torch.Tensor:
-    """Mean next-token cross-entropy of h ``[b, s, d]`` against targets
-    ``[b, s]`` (``[b, s, cb]``), ``loss_chunk`` positions at a time, each
-    chunk's f32 logits recomputed in the backward (:func:`layers.remat`)
-    so the logits of all chunks never live at once.  The VLM stub's
-    image-prefix positions carry no loss."""
+def loss_mask(cfg: ArchConfig, s: int, device: Any) -> torch.Tensor:
+    """``[s]`` f32: 1 where a position carries loss (the VLM stub's
+    image-prefix positions carry none)."""
+    if cfg.frontend == "vlm_stub":
+        return (torch.arange(s, device=device) >= cfg.frontend_tokens).float()
+    return torch.ones(s, dtype=torch.float32, device=device)
+
+
+def token_nll(cfg: ArchConfig, head: Callable[[torch.Tensor], torch.Tensor],
+              h: torch.Tensor, targets: torch.Tensor, *,
+              loss_chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed next-token cross-entropy, the count of positions carrying
+    loss), f32 scalars, of h ``[b, s, d]`` against targets ``[b, s]``
+    (``[b, s, cb]``), ``loss_chunk`` positions at a time, each chunk's f32
+    logits recomputed in the backward (:func:`layers.remat`) so the logits
+    of all chunks never live at once."""
     b, s, _ = h.shape
     loss_chunk = min(loss_chunk, s)
     if s % loss_chunk:
         raise ValueError(f"loss_chunk {loss_chunk} does not divide the "
                          f"sequence length {s}")
-    valid = torch.ones(s, dtype=torch.float32, device=h.device)
-    if cfg.frontend == "vlm_stub":
-        valid = (torch.arange(s, device=h.device)
-                 >= cfg.frontend_tokens).float()
+    valid = loss_mask(cfg, s, h.device)
     total = h.new_zeros((), dtype=torch.float32)
     for c0 in range(0, s, loss_chunk):
         sl = slice(c0, c0 + loss_chunk)
         total = total + L.remat(
-            lambda h_c, t_c, v_c: _chunk_nll(cfg, p, h_c, t_c, v_c),
+            lambda h_c, t_c, v_c: _chunk_nll(cfg, head, h_c, t_c, v_c),
             h[:, sl], targets[:, sl], valid[sl])
-    return total / torch.clamp(valid.sum() * b, min=1.0)
+    return total, valid.sum() * b
+
+
+def position_nll(cfg: ArchConfig, trees: List[Params], h: torch.Tensor,
+                 targets: torch.Tensor, *, loss_chunk: int = 512
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`token_nll` of one data position over its tp ranks' blocks:
+    an untied head's vocab columns split over the ranks and gathered
+    (:func:`sharded.gathered_logits`), a tied head whole on rank 0."""
+    if len(trees) == 1 or cfg.tie_embeddings:
+        def head(x: torch.Tensor) -> torch.Tensor:
+            return lm_head(cfg, trees[0], x)
+    else:
+        def head(x: torch.Tensor) -> torch.Tensor:
+            return sharded.gathered_logits(cfg, trees, x)
+    return token_nll(cfg, head, h, targets, loss_chunk=loss_chunk)
+
+
+def token_loss(cfg: ArchConfig, p: Params, h: torch.Tensor,
+               targets: torch.Tensor, *, loss_chunk: int = 512
+               ) -> torch.Tensor:
+    """Mean next-token cross-entropy of h ``[b, s, d]`` against targets
+    (:func:`token_nll`)."""
+    total, count = token_nll(cfg, lambda x: lm_head(cfg, p, x), h, targets,
+                             loss_chunk=loss_chunk)
+    return total / torch.clamp(count, min=1.0)

@@ -1,15 +1,16 @@
-"""Runtime of the port: the single-device serving engine and the
-scheduler above it; training's step builder (``runtime.train_loop``) and
-``FaultTolerantTrainer`` (``runtime.fault``) are imported from their
-modules."""
+"""Runtime of the port: training's step builder and fault-tolerant
+trainer, the serving engine and the scheduler above it."""
 
+from repro_torch.runtime.train_loop import TrainState, build_train_step
+from repro_torch.runtime.fault import FaultTolerantTrainer
+from repro_torch.runtime.serve_loop import ServeEngine, TokenDomain
 from repro_torch.runtime.scheduler import (
     AdmissionDenied,
     Request,
     Scheduler,
     SchedulerConfig,
 )
-from repro_torch.runtime.serve_loop import ServeEngine, TokenDomain
 
-__all__ = ["AdmissionDenied", "Request", "Scheduler", "SchedulerConfig",
-           "ServeEngine", "TokenDomain"]
+__all__ = ["TrainState", "build_train_step", "FaultTolerantTrainer",
+           "ServeEngine", "TokenDomain",
+           "AdmissionDenied", "Request", "Scheduler", "SchedulerConfig"]

@@ -51,7 +51,10 @@ legacy decode step) and, in the dense prefill,
 CUDA kernels on the card, at each shard's head count; their plain versions
 for CPU tensors.  The dense prefill is the engine's own shard-local pass
 (the JAX engine calls ``Model.prefill`` on sharded parameters and leaves
-the split to XLA); it is the model's prefill at one shard.
+the split to XLA); it is the model's prefill at one shard.  Its attention
+sublayer, every pass's FFN and the gathered head are the shard-local
+passes of :mod:`repro_torch.models.sharded`, which the training forward
+over a mesh runs too.
 
 Unlike the JAX engine, which returns new pool arrays from every jitted
 step, this engine **updates its pools in place** (indexed writes into
@@ -70,7 +73,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import KVBranchManager
 from repro_torch.core.kvtier import KVSnapshot, KVTierStore
 from repro_torch.device import resolve_device
-from repro_torch.distributed.collectives import all_gather, broadcast, psum
+from repro_torch.distributed.collectives import broadcast, psum
 from repro_torch.distributed.mesh import (
     DeviceMesh,
     ParallelPlan,
@@ -84,8 +87,8 @@ from repro_torch.kernels.paged_attention import (
     paged_chunk_attention,
 )
 from repro_torch.models import layers as L
+from repro_torch.models import sharded
 from repro_torch.models.model import Model
-from repro_torch.models.moe import moe_apply_sharded
 from repro_torch.models.transformer import (
     check_engine_servable,
     embed_tokens,
@@ -475,17 +478,10 @@ class ServeEngine:
         to it: each shard's d_ff slice of the MLP, or its experts of the
         MoE block (every row of the pass routed together: the batch is
         never padded, capacity counts its rows), summed over shards."""
-        cfg = self.cfg
-        x = L.rms_norm(h, self.shards[0].layers[i]["ln2"], cfg.norm_eps)
-        xs = self._rep(x)
-        if cfg.is_moe:
-            d = cfg.d_model
-            y, _ = moe_apply_sharded(
-                cfg, [sh.layers[i]["moe"] for sh in self.shards],
-                [xr.reshape(-1, d) for xr in xs])
-            return h + y.reshape(x.shape)
-        return h + psum([L.mlp_block(cfg, sh.layers[i]["mlp"], xr)
-                         for sh, xr in zip(self.shards, xs)])
+        x = L.rms_norm(h, self.shards[0].layers[i]["ln2"], self.cfg.norm_eps)
+        y, _ = sharded.ffn(self.cfg, [sh.layers[i] for sh in self.shards],
+                           self._rep(x))
+        return h + y
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         """Final norm and head on shard 0's device: a vocab-sharded head
@@ -494,9 +490,8 @@ class ServeEngine:
         h = L.rms_norm(h, self.shards[0].params["final_norm"], cfg.norm_eps)
         if not self._gather_logits:
             return lm_head(cfg, self.shards[0].params, h)
-        return all_gather([lm_head(cfg, sh.params, hr)
-                           for sh, hr in zip(self.shards, self._rep(h))],
-                          dim=-1)
+        return sharded.gathered_logits(
+            cfg, [sh.params for sh in self.shards], h)
 
     def _identity_map(self) -> torch.Tensor:
         return torch.arange(self.kv.num_pages, dtype=torch.int32,
@@ -616,14 +611,13 @@ class ServeEngine:
         vs = [[] for _ in self.shards]
         for i in range(cfg.num_layers):
             x = L.rms_norm(h, self.shards[0].layers[i]["ln1"], cfg.norm_eps)
-            parts = []
-            for r, (sh, xr) in enumerate(zip(self.shards, self._rep(x))):
-                lp = sh.layers[i]["attn"]
-                q, k, v = L.qkv_project(cfg, lp, xr, positions[r])
-                parts.append(L.attn_out(flash_attention(q, k, v), lp["wo"]))
-                ks[r].append(k)
-                vs[r].append(v)
-            h = h + psum(parts)
+            a, k, v = sharded.attention(
+                cfg, [sh.layers[i]["attn"] for sh in self.shards],
+                self._rep(x), positions, attn=flash_attention)
+            for r in range(self.tp):
+                ks[r].append(k[r])
+                vs[r].append(v[r])
+            h = h + a
             if i < cfg.num_layers - 1:  # the last FFN feeds only logits
                 h = self._ffn(i, h)
         return [torch.stack(x) for x in ks], [torch.stack(x) for x in vs]

@@ -1,5 +1,5 @@
 """Train-step builder of the port: gradient accumulation, clipping and
-gradient compression over one card.
+gradient compression, on one device or over a mesh.
 
 ``build_train_step`` returns ``step(state, batch) -> (new_state,
 metrics)``, the counterpart of ``repro/runtime/train_loop.py``.  The step
@@ -9,6 +9,15 @@ detached views; the optimizer returns new tensors), so a caller that keeps
 the old state — ``FaultTolerantTrainer``'s committed origin — can roll
 back to it for free.  The metrics are device scalars; nothing here syncs
 with the host.
+
+Over a mesh (a ``Model`` with a training plan) one host process drives
+every position, as XLA's partitioned step does in the JAX package: each
+data position's share of the loss (``Model.position_loss``) is
+differentiated on its own, through its rows and its model positions'
+blocks of the parameters, and the data positions' gradients are summed in
+position order into an f32 accumulator (the reduce-scatter of FSDP leaves
+and the all-reduce of replicated ones, in one order whatever the layout).
+The optimizer then updates each leaf where it lies.
 """
 
 from __future__ import annotations
@@ -18,7 +27,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch.distributed.sharding import place
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import loss_mask
 from repro_torch.optim import (
     Optimizer,
     clip_by_global_norm,
@@ -63,6 +74,49 @@ def value_and_grad(model: Model, params: Any, batch: Dict[str, Any]
             pytree.tree_unflatten(grads, spec))
 
 
+def sharded_value_and_grad(model: Model, params: Any,
+                           batch: Dict[str, Any], grad_shardings: Any = None
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                      Any]:
+    """:func:`value_and_grad` over the model's mesh: data position ``d``'s
+    loss ``nll_d / N + w / D · aux_d`` (``N`` the batch's count of positions
+    carrying loss, ``D`` the data positions, ``w`` the aux weight) is
+    differentiated on its own and its gradients added, position by
+    position, into an f32 accumulator laid out as ``grad_shardings`` says;
+    the sum is the single-device loss's gradient.  The loss and metrics are
+    the positions' :meth:`Model.combine`; the gradients come back in each
+    leaf's type."""
+    flat, spec = pytree.tree_flatten(params)
+    leaves = [p.detach().requires_grad_() for p in flat]
+    tree = pytree.tree_unflatten(leaves, spec)
+    places = (pytree.tree_flatten(grad_shardings,
+                                  is_leaf=lambda x: x is None)[0]
+              if grad_shardings is not None else [None] * len(flat))
+    n_dp, w = model.plan.dp_size, model.moe_aux_weight
+    s = batch["tokens"].shape[1]
+    count = torch.clamp(loss_mask(model.cfg, s, batch["tokens"].device).sum()
+                        * batch["tokens"].shape[0], min=1.0)
+    acc: Any = None
+    parts = []
+    for d in range(n_dp):
+        nll, n_d, aux = model.position_loss(tree, batch, d)
+        loss_d = nll / count.to(nll.device) + (w / n_dp) * aux
+        grads = torch.autograd.grad(loss_d, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(flat, grads)]
+        if acc is None:
+            # a copy: the accumulator is this step's own to add into
+            acc = [place(g.to(torch.float32, copy=True), sh)
+                   for g, sh in zip(grads, places)]
+        else:
+            for a, g in zip(acc, grads):
+                a.add_(g.to(a.device))
+        parts.append((nll.detach(), n_d, aux.detach()))
+    loss, metrics = model.combine(parts)
+    grads = [a.to(p.dtype) for a, p in zip(acc, flat)]
+    return loss, metrics, pytree.tree_unflatten(grads, spec)
+
+
 def build_train_step(
     model: Model,
     optimizer: Optimizer,
@@ -73,20 +127,30 @@ def build_train_step(
     grad_shardings: Any = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
               Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """The step over one card.  ``accum_steps`` splits the batch into
-    microbatches whose gradients sum in an f32 accumulator; ``compress``
-    runs the gradients through error-feedback compression; ``clip_norm``
-    clips by global norm.  ``grad_shardings`` (the JAX package's ZeRO
-    accumulator layout) has no meaning on one card and raises."""
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings lays the accumulator out over a mesh; the port "
-            "trains on one card (multi-GPU: ROADMAP)")
+    """The step on the model's device or over its plan's mesh.
+    ``accum_steps`` splits the batch into microbatches whose gradients sum
+    in an f32 accumulator; ``grad_shardings`` (e.g. ``param_shardings(...,
+    zero1=True)``, the JAX package's ZeRO layout) lays that accumulator out
+    (``None`` leaves and the single-device plan's tree of ``None`` change
+    nothing); ``compress`` runs the gradients through error-feedback
+    compression; ``clip_norm`` clips by global norm."""
+    distributed = model.plan.is_distributed
+
+    def grad_fn(params: Any, batch: Dict[str, torch.Tensor]):
+        if distributed:
+            return sharded_value_and_grad(model, params, batch,
+                                          grad_shardings)
+        return value_and_grad(model, params, batch)
+
+    def lay_out(tree: Any) -> Any:
+        if grad_shardings is None:
+            return tree
+        return pytree.tree_map(place, tree, grad_shardings,
+                               is_leaf=lambda x: x is None)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if accum_steps == 1:
-            loss, metrics, grads = value_and_grad(model, state.params,
-                                                  batch)
+            loss, metrics, grads = grad_fn(state.params, batch)
         else:
             b = batch["tokens"].shape[0]
             if b % accum_steps:
@@ -96,12 +160,12 @@ def build_train_step(
                   for k, v in batch.items()}
             grads, loss = None, 0.0
             for i in range(accum_steps):
-                l_i, _, g = value_and_grad(
-                    model, state.params, {k: v[i] for k, v in mb.items()})
+                l_i, _, g = grad_fn(state.params,
+                                    {k: v[i] for k, v in mb.items()})
                 # the accumulator is this step's own: add into it
-                grads = (pytree.tree_map(lambda x: x.float(), g)
+                grads = (lay_out(pytree.tree_map(lambda x: x.float(), g))
                          if grads is None else pytree.tree_map(
-                             lambda a, x: a.add_(x), grads, g))
+                             lambda a, x: a.add_(x.to(a.device)), grads, g))
                 loss = loss + l_i
             grads = pytree.tree_map(lambda g: g / accum_steps, grads)
             loss = loss / accum_steps

@@ -30,12 +30,17 @@ def test_smoke_prints_the_reference_line(arch, tmp_path, capsys):
     assert 0.0 < float(got.group(2)) < 10.0
 
 
-def test_distributed_is_refused(capsys):
+def test_distributed_is_refused(capsys, tmp_path):
+    """``--distributed`` is no longer refused: with one device (here the
+    CPU) it trains single-device, as the JAX package's CLI does with one
+    device, and says so first."""
     assert port_cli.main(["--arch", "qwen2-1.5b", "--distributed",
-                          "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP" in err
-    assert "multi-GPU" in err
+                          "--device", "cpu", "--smoke", "--ckpt-dir",
+                          str(tmp_path)]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0] == ("--distributed with one visible device: training "
+                      "single-device on cpu")
+    assert out[-1].startswith("done: step 10 loss ")
 
 
 def test_without_cuda_the_cli_raises(tmp_path):

@@ -367,5 +367,25 @@ def test_step_never_writes_into_its_input_state(dense):
 
 
 def test_grad_shardings_raise_on_one_card(dense):
-    with pytest.raises(NotImplementedError, match="one card"):
-        build_train_step(dense[3], adamw(LR), grad_shardings={})
+    """``grad_shardings`` on the single-device plan (``param_shardings``'
+    tree of ``None``) is accepted and changes nothing: the accumulator of
+    an ``accum_steps=2`` step lies where it lay."""
+    from repro_torch.distributed import SINGLE_DEVICE, param_shardings
+    _, _, cfg, model = dense
+    opt = adamw(LR)
+    state = train_state_from_jax(jax.tree_util.tree_map(
+        np.asarray, jax_init(dense[1], jax_adamw(LR),
+                             jax.random.PRNGKey(0))), device="cpu")
+    layout = param_shardings(cfg, SINGLE_DEVICE, state.params)
+    assert all(x is None for x in jax.tree_util.tree_leaves(
+        layout, is_leaf=lambda x: x is None))
+    batch = make_batch(cfg, 4, b=4)[1]
+    want, wmet = build_train_step(model, opt, accum_steps=2)(state, batch)
+    got, met = build_train_step(model, opt, accum_steps=2,
+                                grad_shardings=layout)(state, batch)
+    assert {k: float(v) for k, v in met.items()} == {
+        k: float(v) for k, v in wmet.items()}
+    got, want = by_path(got), by_path(want)
+    assert set(got) == set(want)
+    for path, w in want.items():
+        np.testing.assert_array_equal(got[path], w, err_msg=path)
