@@ -144,8 +144,10 @@ Phases (any failure exits non-zero; nothing is caught into success):
    the model-FLOP share of the bf16 peak, init and step peaks, and one
    profiled step's device-busy ms (its share taken of the step p50, since
    the profiler stretches the profiled step's wall time), K2/K4 kernel ms
-   and plain backward ms; then ``python -m repro_torch.launch.train
-   --arch paper-agentic --steps 8`` as a subprocess;
+   and plain backward ms; ``python -m repro_torch.launch.train --arch
+   paper-agentic --steps 8`` runs as a subprocess once mamba2's profiled
+   step has finished on the card, beside the host's processing of its
+   trace;
 14. (run before 10, after 13) tensor-parallel serving with both shards of
    a ``tp=2`` engine on cuda:0, so one card holds the shard-local math,
    the kernels at the shards' shapes and the sums between shards: (a) the
@@ -163,9 +165,11 @@ Phases (any failure exits non-zero; nothing is caught into success):
    shard) through phase 11's load: the expert-parallel block against one
    device on one input (identical ids, output within ``TOL``), the two
    shards' ids at the first routing call, step p50 and busy share;
-15. training over a (data 2, model 2) mesh of cuda:0 named four times:
-   (a) the hard gate in f32 at ``reduced(granite-8b, d_model=128)``:
-   three AdamW steps over the mesh against one device (the tolerances of
+15. training over a (data 2, model 2) mesh of cuda:0 named four times,
+   the state stored as the mesh's blocks (``init_train_state`` over the
+   plan): (a) the hard gate in f32 at ``reduced(granite-8b,
+   d_model=128)``: three AdamW steps over the mesh against one device
+   (the tolerances of
    ``tests/test_torch_train.py``), ``ring_allreduce`` exact,
    ``psum_quantized`` within ``max|x|/127 · n``, ``ElasticController``
    from 4 positions to 2, and the MoE block with ``dp_axes`` at
@@ -179,7 +183,17 @@ Phases (any failure exits non-zero; nothing is caught into success):
    model-FLOP share beside phase 13's, the peaks, a profiled step's busy
    share; (c) ``launch.train --distributed`` as a subprocess (one card:
    single-device), started once (b)'s last step has finished on the
-   card, beside the host's processing of (b)'s profiled trace;
+   card, beside the host's processing of (b)'s profiled trace; (d) the
+   SSM families' hard gate in f32: reduced mamba2 and zamba2 at the SSD
+   scan kernel's widths, three AdamW steps over (data 1, model 2) and
+   (data 2, model 2) against one device at (a)'s tolerances, K4's and
+   K2's launches equal to their calls; (e) ``mamba2-2.7b`` at full width
+   and depth in bf16 at phase 13's b 2 × s 2048 over the mesh (40 SSD
+   heads a model position), as (b), its profile the card's activity
+   only: 512 K4 launches a step, the first step within (b)'s
+   bf16 tolerance of phase 13's; (f) (b)'s state as stored blocks: its
+   bytes per device, their sum equal to the whole tree's, no stored
+   tensor larger than its block;
 10. the timing of each kernel at the main paths' shapes beside its plain
    version, the nearest single PyTorch call where one exists, the card's
    bound and the time of each kernel's earlier design (from PERF.md: K2
@@ -194,11 +208,13 @@ Phases (any failure exits non-zero; nothing is caught into success):
    beside SDPA; K1 at qwen3-moe-235b-a22b's tp 2 decode, kv 2 and g 16)
    and phase 15's per-position shape (K2 at b 2 × s 2048, h 6 over kv 1:
    the kernel forward, the plain forward and recompute backward, SDPA's
-   forward and forward + backward); then the ``{"kernels": [...]}`` line
-   (K1-K4, launches summed over the main paths and phases 11, 12, 13 and
-   15, then the per-shard rows with phase 14's launches and the
-   per-position row with phase 15's), the card line and the final
-   ``{"ok": true, ...}`` line.
+   forward and forward + backward) and per-model-position shapes (b 1 ×
+   s 2048: K4 at mamba2's H 40 and zamba2's H 56, N 64; K2 at zamba2's
+   shared block, h 16 over kv 16 at hd 112, beside SDPA); then the
+   ``{"kernels": [...]}`` line (K1-K4, launches summed over the main
+   paths and phases 11, 12, 13 and 15, then the per-shard rows with phase
+   14's launches and the per-position and per-model-position rows with
+   phase 15's), the card line and the final ``{"ok": true, ...}`` line.
 
 Every path's kernel launch counters are zeroed just before it runs and
 read just after; a kernel of the path that never launched fails the run.
@@ -2544,9 +2560,17 @@ def _state_to(state, device):
 
 
 def _state_leaves(state) -> list:
-    from repro_torch.checkpoint.serialization import flatten_with_path
+    """Every stored tensor of a state (a blocked leaf's blocks each)."""
+    import torch.utils._pytree as pytree
 
-    return [x for _, x in flatten_with_path(state)]
+    return [x for x in pytree.tree_leaves(state) if x is not None]
+
+
+def _whole_leaves(tree) -> list:
+    """Every leaf of a tree whole (a blocked leaf's blocks gathered)."""
+    from repro_torch.distributed import blocked
+
+    return [blocked.whole(x) for x in blocked.leaves(tree)]
 
 
 #: phase 5's training parity configs: (name, layers, batch, sequence)
@@ -2772,7 +2796,8 @@ def counted_train_calls():
             setattr(mod, name, saved[name])
 
 
-def profile_train_step(run_step, step_ms: float, when_done=None) -> dict:
+def profile_train_step(run_step, step_ms: float, when_done=None,
+                       cpu: bool = True) -> dict:
     """One training step under torch.profiler (after one traced warm-up
     step, dropped): its device-busy ms, K2's and K4's kernel ms, and the
     device ms under the two Functions' backward labels (the plain
@@ -2781,12 +2806,17 @@ def profile_train_step(run_step, step_ms: float, when_done=None) -> dict:
     host op stretches the profiled step's own wall time (a step of many
     small ops the most) but not the kernels' device time.  ``when_done``
     is called once the profiled step has finished on the card, before the
-    host processes the trace (``trace_s``)."""
+    host processes the trace (``trace_s``).  Without ``cpu`` the tracer
+    records the card's activity only (no host ops, so no backward labels):
+    a trace of far fewer events, for a step of very many host ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     traced = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda p: traced.append(
                      p.key_averages())) as prof:
@@ -2853,17 +2883,19 @@ def model_flops(cfg, tokens: int, b: int, s: int) -> float:
 
 
 def trainer_run(name: str, model, b: int, s: int, seed: int,
-                params=None, when_done=None) -> dict:
+                when_done=None, profile_cpu: bool = True) -> dict:
     """``TRAIN_STEPS`` steps of one model through ``FaultTolerantTrainer``
     (no checkpoint manager): AdamW (``cosine_warmup``), clip 1.0, remat on,
     one injected NaN at ``TRAIN_NAN_AT`` that must roll back to a
     bit-identical committed state; every committed loss finite, the last
     below the first; K2/K4 launches equal to their calls, 2 per layer, mesh
-    position and step (the remat recompute's included).  ``params`` places
-    the state's parameters and optimizer state (a plan's placement); the
-    weights come from the port's seeded init.  Returns the run's numbers,
-    its first step's raw metrics and a profiled step (``when_done`` as
-    :func:`profile_train_step`'s)."""
+    position and step (the remat recompute's included).  The weights come
+    from the port's seeded init (over a plan, ``init_train_state`` stores
+    the state as blocks, reported by :func:`stored_report`).  Returns the
+    run's numbers,
+    its first step's raw metrics and a profiled step (``when_done`` and
+    ``profile_cpu`` as :func:`profile_train_step`'s ``when_done`` and
+    ``cpu``)."""
     from repro_torch.data import SyntheticLMPipeline
     from repro_torch.optim import adamw, cosine_warmup
     from repro_torch.runtime.fault import FaultTolerantTrainer
@@ -2880,15 +2912,14 @@ def trainer_run(name: str, model, b: int, s: int, seed: int,
     t0 = time.perf_counter()
     state = init_train_state(
         model, opt, torch.Generator(device="cuda").manual_seed(seed))
-    if params is not None:
-        state = state._replace(params=params(state.params),
-                               opt_state=params(state.opt_state))
     torch.cuda.synchronize()
     res = {"params_b": round(cfg.param_count() / 1e9, 3),
            "b": b, "s": s, "positions": positions,
            "init_s": round(time.perf_counter() - t0, 1),
            "init_peak_gb": round(torch.cuda.max_memory_allocated()
                                  / 1e9, 2)}
+    if model.plan.is_distributed:
+        res["stored"] = stored_report(state)
     tr = FaultTolerantTrainer(
         step_fn=step, state=state, data=SyntheticLMPipeline(
             cfg, batch=b, seq=s, seed=seed, device="cuda"),
@@ -2939,7 +2970,8 @@ def trainer_run(name: str, model, b: int, s: int, seed: int,
     n_attn = cfg.num_layers * positions if cfg.num_heads else 0
     n_ssd = cfg.num_layers * positions if cfg.family == "ssm" else 0
     res["profile"] = profile_train_step(
-        lambda: (tr.run(1), torch.cuda.synchronize()), p50, when_done)
+        lambda: (tr.run(1), torch.cuda.synchronize()), p50, when_done,
+        cpu=profile_cpu)
     log(f"{name} b={b} s={s}: {json.dumps(res)} ({card})")
     if (not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS - 1
             or not losses[-1] < losses[0]):
@@ -2962,11 +2994,37 @@ def trainer_run(name: str, model, b: int, s: int, seed: int,
     return res
 
 
+def stored_report(state) -> dict:
+    """Phase 15 (f): a state stored as blocks: the bytes of its parameters
+    and moments per distinct device, their sum against the whole tree's
+    bytes, and the stored tensors larger than their block (a view of a
+    larger tensor, or a block of the wrong shape): none may be."""
+    from repro_torch.distributed import blocked
+
+    tree = (state.params, state.opt_state)
+    per_device = blocked.stored_bytes(tree)
+    leaves = blocked.leaves(tree)
+    whole = sum(x.numel() * x.dtype.itemsize for x in leaves)
+    larger = 0
+    for x in leaves:
+        parts = (zip((r for r, _ in x.sharding.blocks(x.shape)), x.blocks)
+                 if blocked.is_blocked(x) else [(None, x)])
+        for region, t in parts:
+            larger += (t.untyped_storage().nbytes()
+                       > t.numel() * t.element_size()
+                       or (region is not None
+                           and list(t.shape) != [n for _, n in region]))
+    return {"bytes_per_device": {str(d): v for d, v in per_device.items()},
+            "whole_bytes": whole, "sum_equal": sum(per_device.values())
+            == whole, "blocked_leaves": sum(map(blocked.is_blocked, leaves)),
+            "leaves": len(leaves), "larger_than_block": larger}
+
+
 def phase_train(seed: int = 0) -> dict:
     """Phase 13: training at full width and depth in bf16, random weights
     from the port's init, one config at a time (each freed before the
-    next), through :func:`trainer_run`.  Then the training CLI as a
-    subprocess."""
+    next), through :func:`trainer_run`.  The training CLI runs as a
+    subprocess started once mamba2's profiled step has finished."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
@@ -2974,9 +3032,24 @@ def phase_train(seed: int = 0) -> dict:
         f"weights ({card_line()})")
     gc.collect()
     out = {}
-    for name, b, s in TRAIN_CONFIGS:
-        out[name] = trainer_run(name, Model(get_config(name)), b, s, seed)
-    out["cli"] = train_cli_run()
+    cli = []
+    for i, (name, b, s) in enumerate(TRAIN_CONFIGS):
+        # the CLI starts once the last run's profiled step has finished on
+        # the card, beside the host's processing of that trace; the cached
+        # blocks of the run's step (its peak, 64.7 GB for mamba2) go back
+        # to the card first, for the CLI's process
+        last = i == len(TRAIN_CONFIGS) - 1
+        try:
+            out[name] = trainer_run(
+                name, Model(get_config(name)), b, s, seed,
+                when_done=(lambda: (torch.cuda.empty_cache(),
+                                    cli.append(train_cli_start())))
+                if last else None)
+        except BaseException:
+            if cli:
+                cli[0][0].kill()
+            raise
+    out["cli"] = train_cli_finish(cli[0])
     return out
 
 
@@ -3027,11 +3100,6 @@ def train_cli_finish(started: tuple) -> dict:
         fail(f"the training CLI did not finish its {steps} steps")
     return {"exit": proc.returncode, "s": round(secs, 1), "line": last,
             **({"placed": placed} if distributed else {})}
-
-
-def train_cli_run(distributed: bool = False) -> dict:
-    """The training CLI as a subprocess, start to finish."""
-    return train_cli_finish(train_cli_start(distributed))
 
 
 def train_timing(gen, timer, train: dict) -> None:
@@ -3498,10 +3566,34 @@ def dist_steps(model, state, batches) -> tuple:
     return metrics, state.params
 
 
+def gate_batches(cfg, n: int = 3) -> list:
+    """Phase 15's f32 gates' batches: ``n`` of 8 rows of 64 tokens."""
+    rng = np.random.default_rng(3)
+    return [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 64))
+                                 ).to("cuda")
+             for k in ("tokens", "targets")} for _ in range(n)]
+
+
+def gate_verdict(want: list, wp, got: list, gp) -> tuple:
+    """(max relative difference of the losses and grad norms, parameter
+    elements beyond 1e-5 of their leaf's largest magnitude, their count
+    allowed, the largest difference): ``gp`` may be stored as blocks."""
+    pairs = list(zip(_whole_leaves(gp), _whole_leaves(wp)))
+    diffs = [(a - b_).abs() for a, b_ in pairs]
+    n = sum(d.numel() for d in diffs)
+    flipped = sum(int((d > 1e-5 * float(w.abs().max())).sum())
+                  for d, (_, w) in zip(diffs, pairs))
+    worst = max(float(d.max()) for d in diffs)
+    rel = float(np.max(np.abs(np.array(got) - np.array(want))
+                       / np.abs(np.array(want))))
+    return rel, flipped, n // 1000, worst
+
+
 def dist_gate() -> None:
     """Phase 15 (a), the hard gate, f32 at ``reduced(granite-8b,
     d_model=128)`` (4 heads over 1 kv head, hd 32): three AdamW steps over
-    the 2 x 2 mesh against the single-device step, both on the card, with
+    the 2 x 2 mesh, the state stored as its blocks, against the
+    single-device step, both on the card, with
     ``tests/test_torch_train.py``'s tolerances (losses and grad norms 1e-5
     relative; parameters within 1e-5 of each leaf's largest magnitude but
     for 0.1% of the elements, those within 2 lr); ``ring_allreduce`` exact
@@ -3528,30 +3620,23 @@ def dist_gate() -> None:
     mesh_model = Model(cfg, plan=plan)
     state = init_train_state(one, adamw(TRAIN_PARITY_LR),
                              torch.Generator(device="cuda").manual_seed(0))
-    rng = np.random.default_rng(3)
-    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 64))
-                                    ).to("cuda")
-                for k in ("tokens", "targets")} for _ in range(3)]
+    batches = gate_batches(cfg)
     zero_launches()
     want, wp = dist_steps(one, state, batches)
-    got, gp = dist_steps(mesh_model, state, batches)
+    # the same weights, stored as the mesh's blocks
+    got, gp = dist_steps(mesh_model, init_train_state(
+        mesh_model, adamw(TRAIN_PARITY_LR),
+        torch.Generator(device="cuda").manual_seed(0)), batches)
     launches = launch_counts()
-    pairs = list(zip(_leaves(gp), _leaves(wp)))
-    diffs = [(a - b_).abs() for a, b_ in pairs]
-    n = sum(d.numel() for d in diffs)
-    flipped = sum(int((d > 1e-5 * float(w.abs().max())).sum())
-                  for d, (_, w) in zip(diffs, pairs))
-    worst = max(float(d.max()) for d in diffs)
-    rel = float(np.max(np.abs(np.array(got) - np.array(want))
-                       / np.abs(np.array(want))))
+    rel, flipped, allowed, worst = gate_verdict(want, wp, got, gp)
     log(f"{cfg.name} reduced (d 128, 4 heads over 1 kv head) f32, 3 AdamW "
-        f"steps over the {plan.mesh.shape} mesh on cuda:0 vs one device: "
-        f"losses and grad norms {got} vs {want}, max rel {rel:.3g} (tol "
-        f"1e-5); params {flipped} of {n} elements beyond 1e-5 of their "
-        f"leaf's largest magnitude (tol {n // 1000}), max |diff| "
-        f"{worst:.3g} (tol {2 * TRAIN_PARITY_LR:.3g}); K2 launches "
+        f"steps over the {plan.mesh.shape} mesh on cuda:0 (stored as "
+        f"blocks) vs one device: losses and grad norms {got} vs {want}, "
+        f"max rel {rel:.3g} (tol 1e-5); params {flipped} elements beyond "
+        f"1e-5 of their leaf's largest magnitude (tol {allowed}), max "
+        f"|diff| {worst:.3g} (tol {2 * TRAIN_PARITY_LR:.3g}); K2 launches "
         f"{launches['flash_attention']}")
-    if (rel > 1e-5 or flipped > n // 1000 or worst > 2 * TRAIN_PARITY_LR
+    if (rel > 1e-5 or flipped > allowed or worst > 2 * TRAIN_PARITY_LR
             or not launches["flash_attention"]):
         fail("phase 15 (a): the step over the mesh differs from one "
              "device's")
@@ -3576,7 +3661,7 @@ def dist_gate() -> None:
     p4, plan4 = ctl.remesh(params, ["cuda:0"] * 4)
     p2, plan2 = ctl.remesh(p4, ["cuda:0"] * 2)
     kept = all(torch.equal(a, b_) for a, b_ in zip(_leaves(params),
-                                                    _leaves(p2)))
+                                                    _whole_leaves(p2)))
     loss2 = float(Model(cfg, plan=plan2).loss(p2, batches[0])[0])
     loss1 = float(one.loss(params, batches[0])[0])
     log(f"ElasticController events {ctl.events}: values kept={kept}, loss "
@@ -3588,6 +3673,79 @@ def dist_gate() -> None:
     del state, params, p4, p2
     moe_dp_gate()
     torch.cuda.empty_cache()
+
+
+#: phase 15 (d)'s meshes of cuda:0: (positions, model positions)
+SSM_MESH_PLANS = ((2, 2), (4, 2))
+
+
+def ssm_gate_config(name: str):
+    """Phase 15 (d)'s f32 config: ``reduced(name, d_model=256)`` at the SSD
+    scan kernel's widths (P 64; N 128 for mamba2, 64 for zamba2): 8 SSD
+    heads, 4 a model position; zamba2 at 3 layers (one remat'd group of
+    two Mamba2 layers and the shared block, 4 heads over 4 kv heads at hd
+    64, then a tail layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+
+    full = get_config(name)
+    kw = dict(dtype="float32", ssm_head_dim=64, ssm_state=full.ssm_state)
+    if full.family == "hybrid":
+        kw["num_layers"] = 3
+    return dataclasses.replace(reduced(full, d_model=256), **kw)
+
+
+def ssm_mesh_gate() -> dict:
+    """Phase 15 (d), a hard gate: reduced mamba2 and zamba2
+    (:func:`ssm_gate_config`) take three f32 AdamW steps over (data 1,
+    model 2) and (data 2, model 2) of cuda:0, stored as blocks, against the
+    single device on the card at phase 15 (a)'s tolerances; K4's and K2's
+    launches equal the wrappers' calls.  Returns each config's launches
+    over its mesh runs."""
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import init_train_state
+
+    out = {}
+    for name in ("mamba2-2.7b", "zamba2-7b"):
+        cfg = ssm_gate_config(name)
+        batches = gate_batches(cfg)
+        one = Model(cfg)
+        want, wp = dist_steps(one, init_train_state(
+            one, adamw(TRAIN_PARITY_LR),
+            torch.Generator(device="cuda").manual_seed(0)), batches)
+        zero_launches()
+        with counted_train_calls() as calls:
+            for n, model_axis in SSM_MESH_PLANS:
+                plan = card_plan(n, model_axis)
+                mesh_model = Model(cfg, plan=plan)
+                got, gp = dist_steps(mesh_model, init_train_state(
+                    mesh_model, adamw(TRAIN_PARITY_LR),
+                    torch.Generator(device="cuda").manual_seed(0)), batches)
+                rel, flipped, allowed, worst = gate_verdict(want, wp, got,
+                                                            gp)
+                log(f"{name} reduced (d 256, H {cfg.ssm_heads}, N "
+                    f"{cfg.ssm_state}, P 64) f32, 3 AdamW steps over the "
+                    f"{plan.mesh.shape} mesh on cuda:0 (stored as blocks) "
+                    f"vs one device: losses and grad norms {got} vs {want}, "
+                    f"max rel {rel:.3g} (tol 1e-5); params {flipped} "
+                    f"elements beyond 1e-5 of their leaf's largest "
+                    f"magnitude (tol {allowed}), max |diff| {worst:.3g} (tol "
+                    f"{2 * TRAIN_PARITY_LR:.3g})")
+                if (rel > 1e-5 or flipped > allowed
+                        or worst > 2 * TRAIN_PARITY_LR):
+                    fail(f"phase 15 (d): {name}'s steps over the model axis "
+                         "differ from one device's")
+        launches = launch_counts()
+        log(f"{name}: K4/K2 launches {launches} for calls {calls}")
+        if (launches["ssd_scan"] != calls["ssd_scan"] or not calls["ssd_scan"]
+                or launches["flash_attention"] != calls["flash_attention"]
+                or (cfg.family == "hybrid") != bool(
+                    calls["flash_attention"])):
+            fail(f"phase 15 (d): {name}'s K4/K2 launches {launches} are not "
+                 f"its calls {calls}")
+        out[name] = {k: launches[k] for k in ("ssd_scan", "flash_attention")}
+    return out
 
 
 def moe_dp_gate(seed: int = 0) -> None:
@@ -3633,15 +3791,19 @@ def moe_dp_gate(seed: int = 0) -> None:
 def phase_dist(train: dict, seed: int = 0) -> dict:
     """Phase 15: training over a (data 2, model 2) mesh of cuda:0 named four
     times (one host process drives every position; the script needs one
-    card): (a) :func:`dist_gate`; (b) qwen2-1.5b at full width and depth in
-    bf16 at phase 13's b 4 x s 2048 through :func:`trainer_run` (each data
-    position 2 rows, each model position 6 heads over 1 kv head), its
-    first step's loss and grad norm against phase 13's on the same weights
-    and batch; (c) the training CLI with ``--distributed`` (one card: it
-    trains single-device), a subprocess started once (b)'s profiled step
-    has finished on the card."""
+    card), the state stored as the mesh's blocks: (a) :func:`dist_gate`;
+    (b) qwen2-1.5b at full width and depth in bf16 at phase 13's b 4 x s
+    2048 through :func:`trainer_run` (each data position 2 rows, each
+    model position 6 heads over 1 kv head), its first step's loss and
+    grad norm against phase 13's on the same weights and batch; (c) the
+    training CLI with ``--distributed`` (one card: it trains
+    single-device), a subprocess started once (b)'s profiled step has
+    finished on the card; (d) :func:`ssm_mesh_gate`; (e) mamba2-2.7b at
+    full width and depth in bf16 at phase 13's b 2 x s 2048 over the mesh
+    (each model position 40 SSD heads), as (b); (f) (b)'s state as stored
+    blocks (:func:`stored_report`): bytes per device, their sum against
+    the whole tree's, no tensor larger than its block."""
     from repro_torch.configs import get_config
-    from repro_torch.distributed.sharding import shard_params
     from repro_torch.models import Model
 
     card = card_line()
@@ -3650,50 +3812,75 @@ def phase_dist(train: dict, seed: int = 0) -> dict:
     t0 = time.perf_counter()
     dist_gate()
     t1 = time.perf_counter()
-    name, b, s = TRAIN_CONFIGS[0]
-    cfg = get_config(name)
     plan = card_plan(4, DIST_SHAPE[1])
-    # (c) starts once (b)'s last step has finished on the card: it runs
-    # beside the host's processing of (b)'s profiled trace, and no timed
-    # step shares the card with it
+    out = {}
     cli = []
-    try:
-        res = trainer_run(f"{name} over {plan.mesh.shape}",
-                          Model(cfg, plan=plan), b, s, seed,
-                          params=lambda tree: shard_params(cfg, plan, tree),
-                          when_done=lambda: cli.append(
-                              train_cli_start(True)))
-    except BaseException:
-        # a failed (b) leaves no CLI behind
-        if cli:
-            cli[0][0].kill()
-        raise
-    t2 = time.perf_counter()
-    cli = train_cli_finish(cli[0])
-    one = train[name]
-    d_loss = abs(res["first"]["loss"] / one["first"]["loss"] - 1)
-    d_norm = abs(res["first"]["grad_norm"] / one["first"]["grad_norm"] - 1)
-    log(f"{name} over the mesh vs phase 13 (one device, same weights and "
-        f"batch): first loss {res['first']['loss']:.6f} vs "
-        f"{one['first']['loss']:.6f} (rel {d_loss:.3g}, gate "
-        f"{DIST_BF16_LOSS_REL:.3g}), grad norm "
-        f"{res['first']['grad_norm']:.6f} vs {one['first']['grad_norm']:.6f} "
-        f"(rel {d_norm:.3g}, gate {DIST_BF16_GNORM_REL:.3g}); step p50 "
-        f"{res['step_ms_p50']} ms vs {one['step_ms_p50']} ms, "
-        f"{res['tokens_per_s']} vs {one['tokens_per_s']} tokens/s, model-"
-        f"FLOP share {res['model_flop_share']} vs {one['model_flop_share']}; "
-        f"init peak {res['init_peak_gb']} GB, step peak "
-        f"{res['step_peak_gb']} GB; one profiled step busy "
-        f"{res['profile'].get('device_busy_ms')} ms, share "
-        f"{res['profile'].get('device_busy_share')} of the p50 ({card})")
-    if d_loss > DIST_BF16_LOSS_REL or d_norm > DIST_BF16_GNORM_REL:
-        fail("phase 15 (b): the first step over the mesh is not one "
-             "device's within bf16 tolerance")
-    secs = {"a": t1 - t0, "b": t2 - t1,
-            "c_after_b": time.perf_counter() - t2}
+    for i, (name, b, s) in enumerate(TRAIN_CONFIGS):
+        cfg = get_config(name)
+        # (c) starts once (b)'s last step has finished on the card: it
+        # runs beside the host's processing of (b)'s profiled trace, and
+        # no timed step shares the card with it
+        when_done = (lambda: cli.append(train_cli_start(True))) if i == 0 \
+            else None
+        # (e)'s step issues ~4x phase 13's host ops: its profile records
+        # the card's activity only (a trace of its host ops took the host
+        # ~230 s to process)
+        try:
+            res = trainer_run(f"{name} over {plan.mesh.shape}",
+                              Model(cfg, plan=plan), b, s, seed,
+                              when_done=when_done, profile_cpu=i == 0)
+        except BaseException:
+            # a failed run leaves no CLI behind
+            if cli:
+                cli[0][0].kill()
+            raise
+        one = train[name]
+        part = "(b)" if i == 0 else "(e)"
+        d_loss = abs(res["first"]["loss"] / one["first"]["loss"] - 1)
+        d_norm = abs(res["first"]["grad_norm"] / one["first"]["grad_norm"]
+                     - 1)
+        log(f"phase 15 {part}: {name} over the mesh vs phase 13 (one device, "
+            f"same weights and batch): first loss {res['first']['loss']:.6f}"
+            f" vs {one['first']['loss']:.6f} (rel {d_loss:.3g}, gate "
+            f"{DIST_BF16_LOSS_REL:.3g}), grad norm "
+            f"{res['first']['grad_norm']:.6f} vs "
+            f"{one['first']['grad_norm']:.6f} (rel {d_norm:.3g}, gate "
+            f"{DIST_BF16_GNORM_REL:.3g}); step p50 {res['step_ms_p50']} ms vs "
+            f"{one['step_ms_p50']} ms, {res['tokens_per_s']} vs "
+            f"{one['tokens_per_s']} tokens/s, model-FLOP share "
+            f"{res['model_flop_share']} vs {one['model_flop_share']}; init "
+            f"peak {res['init_peak_gb']} GB (one device "
+            f"{one['init_peak_gb']}), step peak {res['step_peak_gb']} GB (one "
+            f"device {one['step_peak_gb']}); one profiled step busy "
+            f"{res['profile'].get('device_busy_ms')} ms, share "
+            f"{res['profile'].get('device_busy_share')} of the p50; launches "
+            f"{res['launches']} ({card})")
+        if d_loss > DIST_BF16_LOSS_REL or d_norm > DIST_BF16_GNORM_REL:
+            fail(f"phase 15 {part}: the first step over the mesh is not one "
+                 "device's within bf16 tolerance")
+        out[name] = res
+        if i == 0:
+            t2 = time.perf_counter()
+            out["cli"] = train_cli_finish(cli[0])
+            t3 = time.perf_counter()
+            out["ssm_gate"] = ssm_mesh_gate()
+            t4 = time.perf_counter()
+    st = out[TRAIN_CONFIGS[0][0]]["stored"]
+    log(f"phase 15 (f): {TRAIN_CONFIGS[0][0]}'s parameters and moments "
+        f"stored as blocks ({st['blocked_leaves']} of {st['leaves']} leaves "
+        f"split): bytes per device {st['bytes_per_device']}, whole tree "
+        f"{st['whole_bytes']} bytes, sum equal={st['sum_equal']}, tensors "
+        f"larger than their block {st['larger_than_block']}; step peak "
+        f"{out[TRAIN_CONFIGS[0][0]]['step_peak_gb']} GB (phase 13, one "
+        f"device: {train[TRAIN_CONFIGS[0][0]]['step_peak_gb']} GB)")
+    if not st["sum_equal"] or st["larger_than_block"] or not st[
+            "blocked_leaves"]:
+        fail("phase 15 (f): the stored blocks do not tile the state")
+    secs = {"a": t1 - t0, "b": t2 - t1, "c_after_b": t3 - t2,
+            "d": t4 - t3, "e": time.perf_counter() - t4}
     log("phase 15 parts (s): " + json.dumps(
         {k: round(v, 1) for k, v in secs.items()}))
-    return {name: res, "cli": cli}
+    return out
 
 
 def dist_timing(gen, timer, dist: dict) -> dict:
@@ -3751,6 +3938,81 @@ def dist_timing(gen, timer, dist: dict) -> dict:
         "launches": launches, "max_abs_err": c["max_abs_err"], "ms": ms,
         "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": lib}
+
+
+def shard_timing(gen, timer, dist: dict) -> list:
+    """Phase 10's rows at phase 15's per-model-position training shapes,
+    bf16, one data position's b 1 × s 2048 at model 2: K4 at mamba2-2.7b's
+    (H 40, N 128, P 64; launches phase 15 (e)'s) and zamba2-7b's (H 56, N
+    64, P 64), and K2 at zamba2-7b's shared block (h 16 over kv 16, hd
+    112; chunk 1024) with SDPA's forward beside it, each held against its
+    plain version first (zamba2's launches: phase 15 (d)'s, the same
+    shard-local passes at the gate's widths)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    bf16, s = torch.bfloat16, 2048
+    rows = []
+    for name, H, N, launches in (
+            ("mamba2-2.7b", 40, 128, dist["mamba2-2.7b"]["launches"][
+                "ssd_scan"]),
+            ("zamba2-7b", 56, 64, dist["ssm_gate"]["zamba2-7b"]["ssd_scan"])):
+        args = ssd_case(gen, s=s, H=H, N=N, b=1)
+        y_ref, st_ref = ssd_scan_ref(*args)
+        y, st = ssd_scan(*args)
+        cy, cs = compare(y, y_ref), compare(st, st_ref)
+        if not (cy["ok"] and cs["ok"]):
+            fail(f"K4 at {name}'s model position: y {tol_text(cy, bf16)}; "
+                 f"state {tol_text(cs, torch.float32)}")
+        bnd, by = bound_ms(*ssd_cost(args[0], args[3]), bf16)
+        ms = timer(lambda: ssd_scan(*args))
+        plain = timer(lambda: ssd_scan_ref(*args), 5)
+        log(f"K4 training model position ({name}, b 1, s {s}, H {H}, N {N}, "
+            f"P 64): {tol_text(cy, bf16)}; kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}), {launches} launches "
+            "in phase 15")
+        rows.append({
+            "name": f"ssd_scan (training model position: {name}, b 1, H {H},"
+                    f" N {N})",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:92",
+            "launches": launches,
+            "max_abs_err": max(cy["max_abs_err"], cs["max_abs_err"]),
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None})
+        del args, y_ref, st_ref, y, st
+    q, k, v = (torch.randn(1, s, 16, 112, generator=gen, device="cuda").to(
+        bf16) for _ in range(3))
+    c = compare(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+    if not c["ok"]:
+        fail(f"K2 at zamba2's shared-block shard: {tol_text(c, bf16)}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bnd, by = bound_ms(*flash_cost(q, k), bf16)
+    ms = timer(lambda: flash_attention(q, k, v))
+    plain = timer(lambda: flash_attention_ref(q, k, v), 5)
+    lib = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True))
+    launches = dist["ssm_gate"]["zamba2-7b"]["flash_attention"]
+    log(f"K2 training model position (zamba2-7b's shared block, b 1, s {s}, "
+        f"h 16 over kv 16, hd 112): {tol_text(c, bf16)}; kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}),"
+        f" {launches} launches in phase 15")
+    rows.append({
+        "name": "flash_attention (training model position: zamba2-7b's "
+                "shared block, b 1, h 16, kv 16, hd 112)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+        "launches": launches, "max_abs_err": c["max_abs_err"], "ms": ms,
+        "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": lib})
+    return rows
 
 
 @contextlib.contextmanager
@@ -3950,7 +4212,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:92",
         "launches": ssm["launches"]["ssd_scan"]
         + family_launches(families, "ssd_scan")
-        + train["mamba2-2.7b"]["launches"]["ssd_scan"],
+        + train["mamba2-2.7b"]["launches"]["ssd_scan"]
+        + dist["mamba2-2.7b"]["launches"]["ssd_scan"],
         "max_abs_err": d["max_abs_err"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
@@ -3959,6 +4222,7 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
     train_timing(gen, timer, train)
     rows += tp_timing(gen, timer, tp)
     rows.append(dist_timing(gen, timer, dist))
+    rows += shard_timing(gen, timer, dist)
     return rows
 
 

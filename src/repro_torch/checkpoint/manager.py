@@ -12,6 +12,11 @@ Every checkpoint is a BranchFS branch committed into ``base``:
 * **async** — ``save_async`` copies the device tensors to the host now
   and writes/commits on a background thread, overlapping serialization
   with the next train step.
+
+A leaf stored as blocks over a mesh (``distributed.blocked.Blocked``) is
+written whole, its blocks gathered to the host, so the format does not
+depend on the mesh; ``restore`` stores each leaf as ``like``'s leaf is
+stored, whole on its device or as its blocks.
 """
 
 from __future__ import annotations
@@ -30,10 +35,14 @@ from repro_torch.checkpoint.serialization import (
     leaf_to_bytes,
     map_with_path,
 )
+from repro_torch.distributed.blocked import block, is_blocked, whole
 from repro_torch.fs.branchfs import BASE, BranchFS
 
 
 def _host(x: Any) -> Any:
+    """A leaf on the host, whole (a blocked leaf's blocks gathered)."""
+    if is_blocked(x):
+        return whole(x, "cpu").detach()
     return x.detach().cpu() if isinstance(x, torch.Tensor) else x
 
 
@@ -49,7 +58,7 @@ class CheckpointManager:
                     extra: Optional[Dict[str, Any]] = None) -> None:
         for path, leaf in flatten_with_path(tree):
             self.fs.write(branch, f"step{step:012d}/{path}",
-                          leaf_to_bytes(leaf, self.compress))
+                          leaf_to_bytes(_host(leaf), self.compress))
         meta = {"step": step, "extra": extra or {}}
         self.fs.write(branch, f"step{step:012d}/__meta__",
                       json.dumps(meta).encode())
@@ -104,8 +113,8 @@ class CheckpointManager:
     def restore(self, like: Any, step: Optional[int] = None,
                 branch: str = BASE) -> Any:
         """Rebuild a tree shaped like ``like`` from a checkpoint; each
-        tensor leaf lands on the device of ``like``'s leaf, in the stored
-        dtype."""
+        tensor leaf lands on the device of ``like``'s leaf (as its blocks
+        where ``like``'s is stored so), in the stored dtype."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -115,6 +124,8 @@ class CheckpointManager:
         def load(path: str, old: Any) -> Any:
             leaf = leaf_from_bytes(
                 self.fs.read(branch, f"step{step:012d}/{path}"))
+            if is_blocked(old):
+                return block(leaf, old.sharding)
             return (leaf.to(old.device) if isinstance(old, torch.Tensor)
                     else leaf)
         return map_with_path(load, like)

@@ -23,8 +23,6 @@ from typing import Any, List, Sequence
 import torch
 import torch.utils._pytree as pytree
 
-from repro_torch.optim.compress import int8_compress
-
 
 def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """The sum of the shards' partials, on the first one's device, added
@@ -57,6 +55,9 @@ def psum_quantized(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     largest, every part is requantized against that shared scale so the
     sum is coherent, the int32 payloads are summed (exact for fewer than
     2**23 positions) and the sum is scaled back to the parts' type."""
+    # imported here: the optimizers import this package's blocked storage
+    from repro_torch.optim.compress import int8_compress
+
     home = parts[0].device
     scale = torch.stack([int8_compress(p)[1].to(home) for p in parts]).max()
     qs = [torch.clamp(torch.round(p.float() / scale.to(p.device)), -127, 127

@@ -19,18 +19,20 @@ which is how the CPU tests and a one-card run drive tensor and data
 parallelism.
 
 A :class:`NamedSharding` is the port's counterpart of JAX's: a frozen
-(mesh, spec) record saying how a tensor is laid out over the mesh.  The
-port stores a sharded parameter whole on the sharding's first device
-(:meth:`NamedSharding.home`), whatever the spec; each mesh position takes
-its block at use (a view there, a copy on another card) and autograd sums
-the blocks' gradients back into it.  So a mesh of several cards splits the
-compute but not the memory: the parameters, the optimizer moments and the
-gradient accumulator lie whole on the first card (storing each block on
-its positions' card is ROADMAP §1's).
+(mesh, spec) record saying how a tensor is laid out over the mesh.  It
+names each mesh position's block of a leaf (:func:`split_range` along
+every dim whose spec entry names an axis or a tuple of axes) and the
+device that stores each distinct block: the first position in grid order
+that holds it (:meth:`NamedSharding.blocks`).  The port stores a sharded
+leaf as those blocks (:class:`repro_torch.distributed.blocked.Blocked`),
+each on its owner's device, so the positions along a replicated axis share
+one stored copy where the JAX package keeps a replica on each: a card
+never stores more bytes of a leaf than the JAX package's would.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -62,19 +64,71 @@ class DeviceMesh:
                 f"[{', '.join(map(str, self.devices.flat))}])")
 
 
+def split_range(n: int, parts: int, rank: int) -> Tuple[int, int]:
+    """(start, size) of part ``rank`` of ``n`` split into ``parts``
+    contiguous parts, the first ``n % parts`` one longer (a dim that does
+    not divide still has each index in exactly one part)."""
+    base, extra = divmod(n, parts)
+    return rank * base + min(rank, extra), base + (rank < extra)
+
+
+#: a block's region: (start, size) along every dim
+Region = Tuple[Tuple[int, int], ...]
+
+
 @dataclass(frozen=True)
 class NamedSharding:
     """How a tensor lies over ``mesh``: ``spec`` has one entry per dim, an
-    axis name, a tuple of axis names or ``None`` (replicated)."""
+    axis name, a tuple of axis names or ``None`` (replicated).  Dims past
+    the spec's end are replicated."""
     mesh: DeviceMesh
     spec: Tuple[Any, ...]
 
-    @property
-    def home(self) -> torch.device:
-        """The device the port stores the whole tensor on: the mesh's
-        first, whatever ``spec`` says (the spec is computed and checked,
-        not yet used to split storage)."""
-        return self.mesh.devices.flat[0]
+    def _axes(self, dim: int) -> Tuple[str, ...]:
+        a = self.spec[dim] if dim < len(self.spec) else None
+        if a is None:
+            return ()
+        return tuple(a) if isinstance(a, (tuple, list)) else (a,)
+
+    def parts(self, ndim: int) -> Tuple[int, ...]:
+        """How many blocks each of ``ndim`` dims is cut into."""
+        shape = self.mesh.shape
+        return tuple(math.prod(shape[a] for a in self._axes(k))
+                     for k in range(ndim))
+
+    def block_index(self, position: Tuple[int, ...], ndim: int
+                    ) -> Tuple[int, ...]:
+        """The block grid index held by the mesh position (its coordinates
+        on the mesh's axes): along each dim, the position's index on the
+        dim's axes, the first axis major (as ``PartitionSpec``)."""
+        names, shape = self.mesh.axis_names, self.mesh.shape
+        out = []
+        for k in range(ndim):
+            i = 0
+            for a in self._axes(k):
+                i = i * shape[a] + position[names.index(a)]
+            out.append(i)
+        return tuple(out)
+
+    def blocks(self, shape: Sequence[int]
+               ) -> Tuple[Tuple[Region, int], ...]:
+        """Every distinct block of a ``shape`` tensor in block-grid order
+        (row-major): its region and the flat mesh index of the position
+        that stores it, the first in grid order that holds it."""
+        ndim = len(shape)
+        parts = self.parts(ndim)
+        owner: Dict[Tuple[int, ...], int] = {}
+        for flat, pos in enumerate(np.ndindex(self.mesh.devices.shape)):
+            owner.setdefault(self.block_index(pos, ndim), flat)
+        return tuple(
+            (tuple(split_range(n, p, i) for n, p, i in zip(shape, parts, ix)),
+             owner[ix])
+            for ix in np.ndindex(parts))
+
+    def devices(self, shape: Sequence[int]) -> Tuple[torch.device, ...]:
+        """The device storing each distinct block, in block-grid order."""
+        flat = self.mesh.devices.reshape(-1)
+        return tuple(flat[j] for _, j in self.blocks(shape))
 
 
 @dataclass(frozen=True)

@@ -16,20 +16,27 @@ Paths are the tuples of dict keys from the tree's root to the leaf.
 Placement.  For a serving plan :func:`shard_params` holds a parameter tree
 per tp shard, each leaf cut along its tp dimension (a view of the full
 leaf where the shard shares its device, a copy on another device).  For a
-training plan it places each leaf as :func:`param_shardings` says: whole,
-on the sharding's home device (:class:`NamedSharding`), and
-:func:`position_params` gives each mesh position its block at use, as
-views and copies that autograd differentiates through.
+training plan it stores each leaf as the blocks :func:`param_shardings`
+names (:class:`~repro_torch.distributed.blocked.Blocked`), each on the
+device of the first position that holds it, and :func:`position_params`
+gives each mesh position its part of a layer at use: the pieces of the
+blocks it covers, gathered onto its device, which autograd differentiates
+through back into the blocks.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.mesh import NamedSharding, ParallelPlan
+from repro_torch.distributed.blocked import block, map_leaves, take
+from repro_torch.distributed.mesh import (
+    NamedSharding,
+    ParallelPlan,
+    split_range,
+)
 
 Spec = Tuple[Any, ...]
 Path = Tuple[str, ...]
@@ -163,13 +170,6 @@ def param_shardings(cfg: ArchConfig, plan: ParallelPlan, params: Any,
     return tree_map_with_path(one, params)
 
 
-def place(x: torch.Tensor, sharding: Optional[NamedSharding]
-          ) -> torch.Tensor:
-    """``x`` laid out as ``sharding`` says: whole on its home device (the
-    port's storage of a sharded leaf); ``x`` itself without a sharding."""
-    return x if sharding is None else x.to(sharding.home)
-
-
 def batch_spec(cfg: ArchConfig, plan: ParallelPlan, name: str,
                ndim: int) -> Spec:
     """Batch-major inputs (tokens, targets, frontend_embed) shard their
@@ -217,35 +217,63 @@ def state_shardings(cfg: ArchConfig, plan: ParallelPlan,
 # training: each mesh position's block of the parameters
 # ---------------------------------------------------------------------------
 
-def split_range(n: int, parts: int, rank: int) -> Tuple[int, int]:
-    """(start, size) of part ``rank`` of ``n`` split into ``parts``
-    contiguous parts, the first ``n % parts`` one longer (a dim that does
-    not divide still has each index in exactly one part)."""
-    base, extra = divmod(n, parts)
-    return rank * base + min(rank, extra), base + (rank < extra)
-
-
 def _model_dim(cfg: ArchConfig, path: Path, shape: Tuple[int, ...]
                ) -> Optional[int]:
     spec = spec_for_param(cfg, path, shape)
     return spec.index("model") if "model" in spec else None
 
 
-def position_params(cfg: ArchConfig, params: Params, rank: int, tp: int,
-                    device: torch.device) -> Params:
-    """Tp rank ``rank`` of ``tp``'s block of the parameters on ``device``,
-    for a training forward: each leaf cut along its ``model`` dim
-    (:func:`spec_for_param`) into contiguous parts (:func:`split_range`:
-    heads, d_ff, experts, vocab), replicated otherwise.  The kv-head
-    leaves follow the query heads: a rank whose heads lie in one kv group
-    takes that kv head, one whose heads span whole groups takes theirs.
-    The data axes cut nothing: FSDP's gather at use is the whole leaf.  A
-    view of the leaf on its own device, a copy on another; either way
-    differentiable into the leaf."""
-    if tp == 1:
-        return tree_map_with_path(lambda path, x: x.to(device), params)
-    h, kv = cfg.num_heads, cfg.num_kv_heads
-    if h:
+#: the Mamba2 block's leaves, split over the model axis by meaning
+MAMBA_LEAVES = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+                "norm_w", "out_proj")
+
+
+def mamba_ranges(cfg: ArchConfig, name: str, rank: int, tp: int
+                 ) -> List[Tuple[int, int]]:
+    """Tp rank ``rank``'s ranges of a Mamba2 leaf along its model dim: its
+    heads (:func:`split_range` of the SSD heads), so ``in_proj``'s columns
+    of z, of x and of dt for those heads and all of B and C (one group,
+    which every rank uses); ``conv_w``/``conv_b``'s channels of x for those
+    heads and of B and C; the heads of ``A_log``, ``D`` and ``dt_bias``;
+    and the channels of ``norm_w`` and rows of ``out_proj`` for those
+    heads.  The JAX package's even split of these leaves over ``model`` is
+    its storage layout only: the function is the single-device one."""
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    di = cfg.ssm_d_inner
+    h0, nh = split_range(H, tp, rank)
+    if not nh:
+        raise ValueError(f"tp={tp} splits {H} SSD heads so that rank "
+                         f"{rank} has none")
+    c = (h0 * P, nh * P)
+    bc = (di, 2 * cfg.ssm_groups * N)
+    if name == "in_proj":
+        return [c, (di + c[0], c[1]), (2 * di, bc[1]),
+                (2 * di + bc[1] + h0, nh)]
+    if name in ("conv_w", "conv_b"):
+        return [c, bc]
+    if name in ("A_log", "D", "dt_bias"):
+        return [(h0, nh)]
+    return [c]                                      # norm_w, out_proj
+
+
+def rank_ranges(cfg: ArchConfig, path: Path, shape: Tuple[int, ...],
+                rank: int, tp: int
+                ) -> Tuple[Optional[int], List[Tuple[int, int]]]:
+    """(dim, ranges) of tp rank ``rank`` of ``tp``'s part of one leaf of a
+    layer (or of the top-level tree): along its ``model`` dim
+    (:func:`spec_for_param`), contiguous parts (:func:`split_range`:
+    heads, d_ff, experts, vocab); the kv-head leaves follow the query
+    heads (a rank whose heads lie in one kv group takes that kv head, one
+    whose heads span whole groups takes theirs); the Mamba2 leaves split
+    by meaning (:func:`mamba_ranges`).  ``(None, [])``: the whole leaf."""
+    name = path[-1]
+    dim = _model_dim(cfg, path, shape)
+    if tp == 1 or dim is None:
+        return None, []
+    if name in MAMBA_LEAVES:
+        return dim, mamba_ranges(cfg, name, rank, tp)
+    if name in ("wk", "wv", "bk", "bv"):
+        h, kv = cfg.num_heads, cfg.num_kv_heads
         q0, nq = split_range(h, tp, rank)
         g = h // kv
         k0, k1 = q0 // g, -(-(q0 + nq) // g)
@@ -254,16 +282,23 @@ def position_params(cfg: ArchConfig, params: Params, rank: int, tp: int,
                 f"tp={tp} splits {h} heads over {kv} kv heads so that rank "
                 f"{rank}'s heads [{q0}, {q0 + nq}) do not map onto whole kv "
                 "groups or one group")
+        return dim, [(k0, k1 - k0)]
+    return dim, [split_range(shape[dim], tp, rank)]
 
-    def one(path: Path, x: torch.Tensor) -> torch.Tensor:
-        dim = _model_dim(cfg, path, tuple(x.shape))
-        if dim is not None:
-            if path[-1] in ("wk", "wv", "bk", "bv"):
-                start, size = k0, k1 - k0
-            else:
-                start, size = split_range(x.shape[dim], tp, rank)
-            x = x.narrow(dim, start, size)
-        return x.to(device)
+
+def position_params(cfg: ArchConfig, params: Params, rank: int, tp: int,
+                    device: torch.device, path: Path = ()) -> Params:
+    """Tp rank ``rank`` of ``tp``'s part of a parameter tree on ``device``,
+    for a training forward: one layer's tree (the leaves of
+    ``p["layers"]`` at one layer, or the hybrid's shared block) or the
+    top-level leaves, each leaf's :func:`rank_ranges` taken from its
+    tensor or its blocks (:func:`blocked.take`).  The data axes cut
+    nothing: FSDP's gather at use is the whole of those dims.  A view
+    where the part lies in one block on ``device``, a copy otherwise;
+    either way differentiable into the stored leaf."""
+    def one(p: Path, x: Any) -> torch.Tensor:
+        dim, ranges = rank_ranges(cfg, path + p, tuple(x.shape), rank, tp)
+        return take(x, device, dim, ranges)
 
     return tree_map_with_path(one, params)
 
@@ -326,11 +361,12 @@ def shard_params(cfg: ArchConfig, plan: ParallelPlan, params: Params,
     """A serving plan (no data axes): the full parameter tree split into
     one tree per tp shard, each on its device (``plan.devices``), along
     ``specs`` (the serving specs by default).  A training plan: the tree
-    with each leaf placed as :func:`param_shardings` says."""
+    with each leaf stored as :func:`param_shardings`' blocks (a tree of
+    :class:`~repro_torch.distributed.blocked.Blocked`; a tree already
+    stored as blocks is re-laid out, a leaf already in place kept)."""
     if plan.dp_axes:
         sh = param_shardings(cfg, plan, params)
-        return tree_map_with_path(
-            lambda path, leaf: place(leaf, _at(sh, path)), params)
+        return map_leaves(block, params, sh)
     if specs is None:
         specs = serve_param_specs(cfg, plan, params)
     out = []

@@ -128,6 +128,11 @@ class SpeculativeTrainer:
 
     def __init__(self, model: Any, opt: Any, *, n_branches: int = 4,
                  lr_scale_base: float = 0.25, lr_scale_steps: int = 4):
+        if model.plan.is_distributed:
+            raise NotImplementedError(
+                "SpeculativeTrainer vmaps its branches on one device, as "
+                "the JAX package's does; a model over a mesh trains through "
+                "build_train_step")
         self.model = model
         self.opt = opt
         self.n_branches = n_branches

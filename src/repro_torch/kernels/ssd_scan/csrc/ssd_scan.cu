@@ -49,7 +49,10 @@
 //   element, the f32 state in registers for the whole walk; then S split
 //   into kSTerms bf16 tiles for the next chunk.  The hi and lo tiles of a
 //   split operand are two panels of one 64-column B operand, so one m64n64
-//   wgmma sums both terms.
+//   wgmma sums both terms; w o x's third tile is a 32-column B operand
+//   whose m64n32 products accumulate into the hi columns (an m64n32
+//   fragment is the first half of an m64n64 one), so it costs no
+//   registers.
 // * the y path: y2 = C S (the state entering the chunk, from its tiles) and
 //   G = C B^T [Q, Q] (m64n64k16, exact bf16 products, f32 sums); W = G o
 //   exp2(cum2_q - cum2_k) o dt_k for k <= q on G's fragment (cum2 the
@@ -60,7 +63,11 @@
 //   second launch and a [b, chunks, Q, Q] f32 round trip.
 // Term counts: the smallest that meet the f32-grade tolerance with margin
 // at the main paths' magnitudes (tests/test_torch_tc_numerics.py); one term
-// misses it for each of W, S and w o x.  The in-chunk decays are
+// misses it for each of W, S and w o x.  The state takes a third term of
+// w o x: with two it carries ~3e-6 of its own magnitude (every chunk's
+// update off by the lo term's rounding), which passes the tolerance's 2e-5
+// only while a state element stays under ~7 (tools/k4_state_error.py; a
+// draw at b 1, s 2048, N 64 missed at 2.48e-5); with three, ~1e-7.  The in-chunk decays are
 // differences of running sums: their cancellation (|cum| 2^-24 in the
 // exponent) is far inside y's bf16 tolerance.
 // Left for later: the chunk-parallel form (intra-chunk outputs and chunk
@@ -322,7 +329,7 @@ constexpr int THREADS = 256;   // two warpgroups: the y path and the state path
 constexpr int STAGES = 2;      // ring of B, C and x tiles
 constexpr int kWTerms = 2;     // bf16 terms of W in y = W x
 constexpr int kSTerms = 2;     // bf16 terms of S in y += exp(cum) C S
-constexpr int kWxTerms = 2;    // bf16 terms of w o x in the state update
+constexpr int kWxTerms = 3;    // bf16 terms of w o x in the state update
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int N>
@@ -331,10 +338,11 @@ struct Shape {
   static constexpr int XT = Q * PS * 2;   // bytes of an x or w o x tile (64 B rows)
   static constexpr int STAGE = 2 * CB + XT;
   static constexpr int ST = N * PS * 2;   // bytes of one S term tile (64 B rows)
-  // alignment slack, the ring, S hi/lo, (w o x) hi/lo, two sets of three
-  // [Q] f32 vectors for the y path and one for the state path, mbarriers
+  // alignment slack, the ring, S hi/lo, (w o x) hi/lo/lo2, two sets of
+  // three [Q] f32 vectors for the y path and one for the state path,
+  // mbarriers
   static constexpr size_t SMEM =
-      1024 + STAGES * STAGE + 2 * ST + 2 * XT + 7 * Q * 4 + 8 * (3 * STAGES + 2);
+      1024 + STAGES * STAGE + 2 * ST + 3 * XT + 7 * Q * 4 + 8 * (3 * STAGES + 2);
 };
 
 // dt [b, s, H] f32, A [H] f32; the maps cover x [b, s, H, P] and B, C
@@ -350,16 +358,17 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   using Sh = Shape<N>;
   constexpr int HALVES = N / 64;  // state rows in m64 halves
   constexpr int slices = P / PS;
-  static_assert(kWTerms == 2 && kSTerms == 2 && kWxTerms == 2,
-                "each split product issues a hi and a lo term");
+  static_assert(kWTerms == 2 && kSTerms == 2 && kWxTerms == 3,
+                "W and S issue a hi and a lo term, w o x a third as well");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* s_hi = base + STAGES * Sh::STAGE;  // S entering the chunk, hi and lo
   uint8_t* s_lo = s_hi + Sh::ST;              // panels (one N-major B operand)
   uint8_t* wx_hi = s_lo + Sh::ST;             // w o x, hi and lo panels
   uint8_t* wx_lo = wx_hi + Sh::XT;
+  uint8_t* wx_lo2 = wx_lo + Sh::XT;           // and its third term
   // per chunk parity: [2][Q] running sums of dt A in base 2, their exp, dt
-  float* cum2_s = reinterpret_cast<float*>(wx_lo + Sh::XT);
+  float* cum2_s = reinterpret_cast<float*>(wx_lo2 + Sh::XT);
   float* ecum_s = cum2_s + 2 * Q;
   float* dt_s = ecum_s + 2 * Q;
   float* wk_s = dt_s + 2 * Q;  // [Q] the state weights w
@@ -560,8 +569,8 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap x_map,
       mbar_arrive(&sc_ready[sb]);
       mbar_wait(&full[st], (c / STAGES) & 1);
       {
-        // w o x split into bf16 tiles shaped as x: thread -> row wt / 2,
-        // 16 columns (two 16-byte chunks)
+        // w o x split into three bf16 tiles shaped as x: thread -> row
+        // wt / 2, 16 columns (two 16-byte chunks)
         const int k = wt >> 1;
         const float w = wk_s[k];
 #pragma unroll
@@ -569,34 +578,49 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap x_map,
           const uint32_t off = swizzled_offset<64>(k, (wt & 1) * 16 + j * 8, Q);
           const uint4 xv = *reinterpret_cast<const uint4*>(x_t(st) + off);
           const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
-          uint4 hv, lv;
+          uint4 hv, lv, l2v;
           uint32_t* hp = reinterpret_cast<uint32_t*>(&hv);
           uint32_t* lp = reinterpret_cast<uint32_t*>(&lv);
+          uint32_t* l2p = reinterpret_cast<uint32_t*>(&l2v);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float2 f = __bfloat1622float2(xp[e]);
-            split_pack(w * f.x, w * f.y, hp[e], lp[e]);
+            const float a = w * f.x, c = w * f.y;
+            split_pack(a, c, hp[e], lp[e]);
+            // the third term: what hi and lo leave, rounded once more
+            const float2 hf = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&hp[e]));
+            const float2 lf = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&lp[e]));
+            const __nv_bfloat162 r =
+                __floats2bfloat162_rn((a - hf.x) - lf.x, (c - hf.y) - lf.y);
+            l2p[e] = *reinterpret_cast<const uint32_t*>(&r);
           }
           *reinterpret_cast<uint4*>(wx_hi + off) = hv;
           *reinterpret_cast<uint4*>(wx_lo + off) = lv;
+          *reinterpret_cast<uint4*>(wx_lo2 + off) = l2v;
         }
       }
       fence_proxy_async();
       named_sync(1, 128);  // the w o x tiles
       // u = B^T (w o x), B read M-major as the A operand; w o x hi and lo
       // are the two 32-column panels of one 64-column B operand, so one
-      // m64n64 product gives both terms' sums (columns 0-31 and 32-63)
+      // m64n64 product gives both terms' sums (columns 0-31 and 32-63); the
+      // third term's m64n32 products add into columns 0-31
       const float decay = ecum_s[sb * Q + Q - 1];
 #pragma unroll
       for (int hf = 0; hf < HALVES; ++hf) {
         float u[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) u[i] = 0.f;
+        float (&u_hi)[16] = *reinterpret_cast<float (*)[16]>(u);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss_n64<1, 1>(u, nmajor_desc<128>(b_t(st) + hf * Q * 128, kk * 16, Q),
-                             nmajor_desc<64>(wx_hi, kk * 16, Q));
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t bt = nmajor_desc<128>(b_t(st) + hf * Q * 128, kk * 16, Q);
+          wgmma_ss_n64<1, 1>(u, bt, nmajor_desc<64>(wx_hi, kk * 16, Q));
+          wgmma_ss_n32<1, 1>(u_hi, bt, nmajor_desc<64>(wx_lo2, kk * 16, Q));
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(u);

@@ -14,14 +14,13 @@ directory).  It prints ``done: step N loss X rollbacks R``.
 
 ``--distributed`` plans a mesh over the visible cards when there are more
 than one, as the JAX package plans over its devices: ``plan_mesh``,
-``Model(cfg, plan=plan)``, the parameters and the optimizer state placed
-as ``param_shardings`` says, and one process driving every position (the
-data pipeline is shard 0 of 1).  It prints ``training mesh: ...`` first.
-With one device (one card, or ``--device cpu``) it trains single-device
-and says so.  The mesh splits the compute, not the memory: the port
-stores every parameter, optimizer moment and gradient accumulator whole on
-the mesh's first card (``NamedSharding.home``), so a model that does not
-fit on one card does not train over several either (ROADMAP §1).
+``Model(cfg, plan=plan)``, the parameters and the optimizer state stored
+as the blocks ``param_shardings`` names (``init_train_state`` over the
+plan: each card holds the blocks its positions own, and the gradient
+accumulator is laid out the same way), and one process driving every
+position (the data pipeline is shard 0 of 1).  It prints ``training
+mesh: ...`` first.  With one device (one card, or ``--device cpu``) it
+trains single-device and says so.
 """
 
 from __future__ import annotations
@@ -61,8 +60,7 @@ def main(argv=None) -> int:
                     help="reduced config, float32, CPU-sized")
     ap.add_argument("--distributed", action="store_true",
                     help="plan a (data, model) mesh over the visible "
-                    "cards: it splits the compute; the state stays whole "
-                    "on the first card")
+                    "cards, the state stored as blocks over them")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without one) or cpu")
     args = ap.parse_args(argv)
@@ -72,7 +70,6 @@ def main(argv=None) -> int:
     from repro_torch.data import SyntheticLMPipeline
     from repro_torch.device import resolve_device
     from repro_torch.distributed.mesh import SINGLE_DEVICE
-    from repro_torch.distributed.sharding import shard_params
     from repro_torch.models import Model
     from repro_torch.optim import adamw, cosine_warmup
     from repro_torch.runtime.elastic import plan_mesh
@@ -101,15 +98,10 @@ def main(argv=None) -> int:
                               args.steps))
     step = build_train_step(model, opt, accum_steps=args.accum,
                             compress=args.compress_grads)
+    # over a mesh: the parameters and the optimizer state as blocks
     state = init_train_state(
         model, opt, torch.Generator(device=device).manual_seed(0),
         compress=args.compress_grads)
-    if plan.is_distributed:
-        # the optimizer state mirrors the parameter tree: the same rules
-        # place it (mu/nu over pod too on a multi-pod mesh)
-        state = state._replace(
-            params=shard_params(cfg, plan, state.params),
-            opt_state=shard_params(cfg, plan, state.opt_state))
     # one process drives every mesh position: it reads shard 0 of 1
     data = SyntheticLMPipeline(cfg, batch=args.batch, seq=args.seq, seed=7,
                                shard=0, num_shards=1, device=device)

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.blocked import is_blocked, unbind_layers
 from repro_torch.kernels.flash_attention import flash_attention
 
 Params = Dict[str, Any]
@@ -50,10 +51,13 @@ def unstack_layers(p: Any, n: int) -> List[Any]:
     """The ``n`` layer trees of a stacked ``[L, ...]`` tree, each leaf
     split by one ``unbind``: its backward stacks the layers' gradients
     once, where ``n`` selects would each write a zero-filled ``[L, ...]``
-    gradient."""
+    gradient.  A leaf stored as blocks over a mesh gives each layer's
+    blocks as views (:func:`blocked.unbind_layers`), nothing gathered."""
     if isinstance(p, dict):
         parts = {k: unstack_layers(v, n) for k, v in p.items()}
         return [{k: parts[k][i] for k in p} for i in range(n)]
+    if is_blocked(p):
+        return unbind_layers(p, n)
     return list(torch.unbind(p[:n], 0))
 
 

@@ -10,9 +10,10 @@ serves the dense, vlm (text) and moe families; ssm and hybrid branch
 their caches through ``BranchStore``.
 
 With a training ``plan`` (``plan_from_mesh``), ``loss`` is the one-process
-sharded pass over the mesh (``models/transformer.py``): each data
-position's token sum and count (:meth:`Model.position_loss`), combined in
-position order (:meth:`Model.combine`).
+sharded pass over the mesh (``models/transformer.py``), on parameters
+stored whole or as blocks (``distributed.sharding.shard_params``): each
+data position's token sum and count (:meth:`Model.position_loss`),
+combined in position order (:meth:`Model.combine`).
 """
 
 from __future__ import annotations
@@ -51,7 +52,6 @@ class Model:
 
     def __post_init__(self):
         T.check_servable(self.cfg)
-        T.check_plan(self.cfg, self.plan)
 
     def init(self, generator: torch.Generator) -> Params:
         """Random weights from a seeded generator, on its device."""
@@ -87,11 +87,10 @@ class Model:
             plan, batch["tokens"], batch["targets"],
             batch.get("frontend_embed"))[d]
         s = tokens.shape[1]
-        trees = T.position_trees(self.cfg, params, plan, d)
         h, aux = T.position_forward(self.cfg, params, plan, d, tokens, fe,
-                                    trees=trees, remat=self.remat,
+                                    remat=self.remat,
                                     attn_chunk=min(self.attn_chunk, s))
-        nll, count = T.position_nll(self.cfg, trees, h, targets,
+        nll, count = T.position_nll(self.cfg, params, plan, d, h, targets,
                                     loss_chunk=min(self.loss_chunk, s))
         return nll, count, aux
 

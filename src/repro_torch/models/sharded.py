@@ -15,6 +15,13 @@ shards (norms, the router) gets the sum of its shards' gradients, and a
 sliced leaf the gradients of its slices.  The counterpart of the JAX
 package's ``shard_map`` bodies and of XLA's partitioning of
 ``Model.loss``.
+
+The Mamba2 block (:func:`mamba`) splits over its SSD heads: each rank
+projects, convolves and scans its heads (B and C, one group, on every
+rank), the gated output norm sums its f32 squares over the ranks
+(:func:`gated_rms_norm`), and ``out_proj``'s partials are summed as the
+FFN's are.  The hybrid's shared block (:func:`shared_block`) is the
+attention and MLP passes after ``w_concat``, on rank 0.
 """
 
 from __future__ import annotations
@@ -22,11 +29,13 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.collectives import all_gather, broadcast, psum
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_apply_sharded
+from repro_torch.models.ssm import mamba_scan
 
 Params = Dict[str, Any]
 
@@ -86,6 +95,64 @@ def layer(cfg: ArchConfig, lps: Sequence[Params], h: torch.Tensor,
     x = L.rms_norm(h, lps[0]["ln2"], cfg.norm_eps)
     y, aux = ffn(cfg, lps, broadcast(x, devices))
     return h + y, aux
+
+
+def gated_rms_norm(ys: Sequence[torch.Tensor], zs: Sequence[torch.Tensor],
+                   ws: Sequence[torch.Tensor], eps: float, n: int
+                   ) -> List[torch.Tensor]:
+    """Mamba2's output norm (:func:`layers.gated_rms_norm`) of a row split
+    over the ranks, each rank's slice ``ys[r]``, ``zs[r]`` and weight
+    ``ws[r]`` on its device: each rank's f32 sum of the squares of its
+    slice of ``y · silu(z)``, summed over the ranks on rank 0 (``n``, the
+    whole row's width, divides it) and copied back, scales each slice,
+    rounded once to ``y``'s type."""
+    xfs = [y.float() * F.silu(z.float()) for y, z in zip(ys, zs)]
+    var = psum([xf.square().sum(dim=-1, keepdim=True) for xf in xfs]) / n
+    return [(xf * torch.rsqrt(v + eps) * w.float()).to(y.dtype)
+            for xf, v, w, y in zip(xfs, broadcast(var, [x.device
+                                                       for x in xfs]),
+                                   ws, ys)]
+
+
+def mamba(cfg: ArchConfig, lps: Sequence[Params],
+          xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The Mamba2 block (``mamba_block``) over the ranks' heads, each
+    rank's normed input on its device: its columns of ``in_proj``, conv,
+    the SSD scan over its heads (:func:`ssm.mamba_scan`), the gated norm
+    over the whole ``d_inner`` (:func:`gated_rms_norm`) and its rows of
+    ``out_proj``; the partials summed on rank 0 in rank order."""
+    outs = [mamba_scan(cfg, lp, x) for lp, x in zip(lps, xs)]
+    ys = gated_rms_norm([o[0] for o in outs], [o[1] for o in outs],
+                        [lp["norm_w"] for lp in lps], cfg.norm_eps,
+                        cfg.ssm_d_inner)
+    return psum([y @ lp["out_proj"] for y, lp in zip(ys, lps)])
+
+
+def mamba_layer(cfg: ArchConfig, lps: Sequence[Params], h: torch.Tensor
+                ) -> torch.Tensor:
+    """One pre-norm Mamba2 layer over the ranks' layer trees, the residual
+    ``h`` on rank 0's device."""
+    x = L.rms_norm(h, lps[0]["ln"], cfg.norm_eps)
+    return h + mamba(cfg, [lp["mamba"] for lp in lps],
+                     broadcast(x, [shard_device(lp) for lp in lps]))
+
+
+def shared_block(cfg: ArchConfig, sps: Sequence[Params],
+                 w_concat: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                 positions: Sequence[torch.Tensor], chunk: int = 1024
+                 ) -> torch.Tensor:
+    """The hybrid's shared block over the ranks' trees ``sps`` (its
+    attention heads and d_ff slice; ``ln1``/``ln2`` whole): ``concat([h,
+    h0]) @ w_concat`` on rank 0, then the attention and MLP passes."""
+    devices = [shard_device(sp) for sp in sps]
+    x = torch.cat([h, h0], dim=-1) @ w_concat
+    a, _, _ = attention(cfg, [sp["attn"] for sp in sps],
+                        broadcast(L.rms_norm(x, sps[0]["ln1"], cfg.norm_eps),
+                                  devices), positions, chunk)
+    x = x + a
+    m, _ = ffn(cfg, sps, broadcast(L.rms_norm(x, sps[0]["ln2"],
+                                              cfg.norm_eps), devices))
+    return h + x + m
 
 
 def gathered_logits(cfg: ArchConfig, trees: Sequence[Params],

@@ -114,23 +114,41 @@ def softplus_dt(dt: torch.Tensor, dt_bias: torch.Tensor) -> torch.Tensor:
     return F.softplus(dt.float() + dt_bias)
 
 
-def mamba_forward(cfg: ArchConfig, p: Params, x: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The Mamba2 block over a sequence x ``[b, s, d]``, its scan the SSD
-    scan kernel.  Returns (y ``[b, s, d]``, the conv state — the last
-    ``ck - 1`` *pre-activation* conv inputs — and the final SSM state)."""
+def mamba_scan(cfg: ArchConfig, p: Params, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """The Mamba2 block up to its output norm, over the heads ``p`` holds
+    (all of them, or one tp rank's: ``p["A_log"]`` has one entry per head;
+    ``in_proj``'s columns are z, x, B, C and dt of those heads, B and C
+    whole): (y ``[b, s, heads · P]`` before the norm, z, the conv state —
+    the last ``ck - 1`` *pre-activation* conv inputs — and the final SSM
+    state), the scan the SSD scan kernel."""
     b, s, _ = x.shape
-    di, H, Pd = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xBC_pre, dt = _split_proj(cfg, x @ p["in_proj"])
+    N, Pd = cfg.ssm_state, cfg.ssm_head_dim
+    H = p["A_log"].shape[0]
+    di = H * Pd
+    zxbcdt = x @ p["in_proj"]
+    cdim = di + 2 * cfg.ssm_groups * N
+    z, xBC_pre, dt = (zxbcdt[..., :di], zxbcdt[..., di:di + cdim],
+                      zxbcdt[..., di + cdim:])
     conv_state = xBC_pre[:, s - (cfg.ssm_conv_kernel - 1):, :]
     xBC = causal_conv1d(xBC_pre, p["conv_w"], p["conv_b"])
-    xs, B, C = _split_xbc(cfg, xBC)
+    xs, B, C = xBC[..., :di], xBC[..., di:di + N], xBC[..., di + N:]
     xs = xs.reshape(b, s, H, Pd).contiguous()
     A = -torch.exp(p["A_log"])
     y, ssm_state = ssd_scan(xs, softplus_dt(dt, p["dt_bias"]).contiguous(),
                             A, B.contiguous(), C.contiguous(), cfg.ssm_chunk)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xs
-    y = gated_rms_norm(y.reshape(b, s, di), z, p["norm_w"], cfg.norm_eps)
+    return y.reshape(b, s, di), z, conv_state, ssm_state
+
+
+def mamba_forward(cfg: ArchConfig, p: Params, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Mamba2 block over a sequence x ``[b, s, d]``, its scan the SSD
+    scan kernel.  Returns (y ``[b, s, d]``, the conv state and the final
+    SSM state; :func:`mamba_scan`)."""
+    y, z, conv_state, ssm_state = mamba_scan(cfg, p, x)
+    y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"], conv_state, ssm_state
 
 

@@ -14,17 +14,20 @@ runs the pass the JAX package leaves to XLA's partitioner, one data
 position at a time (:func:`position_forward`, :func:`position_nll`;
 ``Model.loss`` combines the positions).  The batch splits over the data
 positions (``batch_spec``: contiguous rows, position ``d`` on
-``plan.grid[d][0]``).  Inside each data position every
-attention and FFN sublayer runs shard-locally over the model positions
-(:mod:`models.sharded`, the serving engine's passes) on each position's
-block of the parameters (:func:`distributed.sharding.position_params`:
-views of the leaves, or copies on another card) and the partials are
-summed in shard order.  The loss combines the positions' token sums and
-counts (:func:`position_nll`), so it is the single-device loss whatever
-the mask; the MoE aux loss is the mean over the data positions (the
-GShard convention of the JAX package).  The dense, vlm, audio and moe
-families split over both axes; ssm and hybrid over the data axis only
-(their model-axis split is ROADMAP §1's next item).
+``plan.grid[d][0]``).  Inside each data position every sublayer runs
+shard-locally over the model positions (:mod:`models.sharded`: attention
+and FFN, the Mamba2 block over its heads, the hybrid's shared block) and
+the partials are summed in shard order.  Each layer (each hybrid group)
+takes its part of the parameters at use, inside its remat'd body
+(:func:`distributed.sharding.position_params`: the pieces of the stored
+blocks gathered onto the position's card), so the backward's recompute
+gathers it again and a card holds at most a layer or two gathered beside
+its blocks; the embedding, the image projection, ``final_norm`` and the
+head are gathered where they are used.  The loss combines the positions'
+token sums and counts (:func:`position_nll`), so it is the single-device
+loss whatever the mask; the MoE aux loss is the mean over the data
+positions (the GShard convention of the JAX package).  Every family
+splits over both axes.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.blocked import take
 from repro_torch.distributed.collectives import broadcast
 from repro_torch.distributed.mesh import ParallelPlan
 from repro_torch.distributed.sharding import position_params
@@ -100,16 +104,6 @@ def check_engine_servable(cfg: ArchConfig) -> None:
             f"{'/'.join(ENGINE_FAMILIES)} (text) families; the SSM and "
             "hybrid families run through Model.prefill / decode_step and "
             "BranchStore (the JAX package's engine refuses them too)")
-
-
-def check_plan(cfg: ArchConfig, plan: ParallelPlan) -> None:
-    """Refuse a plan the port cannot train on: the SSM and hybrid families
-    split over the data axis only."""
-    if plan.tp_size > 1 and cfg.family in SSM_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port trains the SSM and hybrid "
-            f"families over the data axis only; their model-axis split "
-            f"(tp={plan.tp_size}) is not ported yet (ROADMAP §1)")
 
 
 def init_transformer(cfg: ArchConfig, gen: torch.Generator) -> Params:
@@ -316,44 +310,75 @@ def position_rows(plan: ParallelPlan, *xs: Optional[torch.Tensor]
         plan.grid[d][0]) for x in xs] for d in range(n)]
 
 
-def position_trees(cfg: ArchConfig, p: Params, plan: ParallelPlan,
-                   d: int) -> List[Params]:
-    """Data position ``d``'s parameter block for each of its tp ranks."""
-    row = plan.grid[d]
-    return [position_params(cfg, p, r, len(row), dev)
-            for r, dev in enumerate(row)]
-
-
 def position_forward(cfg: ArchConfig, p: Params, plan: ParallelPlan, d: int,
                      tokens: torch.Tensor,
                      frontend_embed: Optional[torch.Tensor] = None, *,
-                     trees: Optional[List[Params]] = None,
                      remat: bool = True, attn_chunk: int = 1024
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Data position ``d``'s forward over its rows (on ``plan.grid[d][0]``):
-    the single-device forward on its block at one tp rank, else every layer
-    shard-locally over its tp ranks (:func:`sharded.layer`) with the
-    residual on rank 0, remat around each layer as :func:`forward`."""
-    check_plan(cfg, plan)
-    trees = position_trees(cfg, p, plan, d) if trees is None else trees
-    if len(trees) == 1:
-        return forward(cfg, trees[0], tokens, frontend_embed, remat=remat,
-                       attn_chunk=attn_chunk)
-    home = plan.grid[d][0]
-    # the embedding and the image projection whole (FSDP's gather at use)
-    emb = {k: p[k].to(home) for k in ("embed", "frontend_proj") if k in p}
-    h = embed_tokens(cfg, emb, tokens, frontend_embed)
-    positions = broadcast(torch.arange(h.shape[1], device=home),
-                          [sharded.shard_device(t) for t in trees])
+    """Data position ``d``'s forward over its rows (on ``plan.grid[d][0]``)
+    from the parameters ``p`` (tensors, or stored blocks): each layer's
+    part of the parameters gathered at use inside the layer's remat'd body
+    (the hybrid: inside each group's), then the single-device layer at one
+    tp rank or the shard-local passes (:mod:`models.sharded`) with the
+    residual on rank 0, remat as :func:`forward`."""
+    row = plan.grid[d]
+    tp, home = len(row), row[0]
+
+    def at(tree: Params, path: Tuple[str, ...] = ()) -> List[Params]:
+        return [position_params(cfg, tree, r, tp, dev, path)
+                for r, dev in enumerate(row)]
+
+    h = embed_tokens(cfg, {k: take(p[k], home) for k in
+                           ("embed", "frontend_proj") if k in p},
+                     tokens, frontend_embed)
+    positions = broadcast(torch.arange(h.shape[1], device=home), row)
     aux = h.new_zeros((), dtype=torch.float32)
     wrap = L.remat if remat else (lambda fn, *args: fn(*args))
-    per_rank = [L.unstack_layers(t["layers"], cfg.num_layers) for t in trees]
-    for i in range(cfg.num_layers):
-        h, a = wrap(lambda h_, lps_: sharded.layer(cfg, lps_, h_, positions,
-                                                   attn_chunk),
-                    h, [layers[i] for layers in per_rank])
-        aux = aux + a
-    return L.rms_norm(h, trees[0]["final_norm"], cfg.norm_eps), aux
+    n = cfg.num_layers
+    layers = L.unstack_layers(p["layers"], n)
+
+    def mamba_layer(h_: torch.Tensor, lv: Params) -> torch.Tensor:
+        lps = at(lv)
+        if tp == 1:
+            return _mamba_layer(cfg, lps[0], h_)
+        return sharded.mamba_layer(cfg, lps, h_)
+
+    if cfg.family in ATTN_FAMILIES:
+        def attn_layer(h_: torch.Tensor, lv: Params):
+            lps = at(lv)
+            if tp == 1:
+                return _attn_mlp_layer(cfg, lps[0], h_, positions[0],
+                                       attn_chunk)
+            return sharded.layer(cfg, lps, h_, positions, attn_chunk)
+
+        for lv in layers:
+            h, a = wrap(attn_layer, h, lv)
+            aux = aux + a
+    elif cfg.family == "ssm":
+        for lv in layers:
+            h = wrap(mamba_layer, h, lv)
+    else:                                               # hybrid
+        h0, k = h, cfg.attn_every
+        n_groups = n // k
+        shared = {key: v for key, v in p["shared"].items()
+                  if key != "w_concat"}
+
+        def group(h_: torch.Tensor, glv: list) -> torch.Tensor:
+            for lv in glv:
+                h_ = mamba_layer(h_, lv)
+            sps = at(shared, ("shared",))
+            w = take(p["shared"]["w_concat"], home)
+            if tp == 1:
+                return _shared_attn_block(cfg, {**sps[0], "w_concat": w},
+                                          h_, h0, positions[0], attn_chunk)
+            return sharded.shared_block(cfg, sps, w, h_, h0, positions,
+                                        attn_chunk)
+
+        for g in range(n_groups):
+            h = wrap(group, h, layers[g * k:(g + 1) * k])
+        for lv in layers[n_groups * k:]:
+            h = mamba_layer(h, lv)
+    return L.rms_norm(h, take(p["final_norm"], home), cfg.norm_eps), aux
 
 
 # ---------------------------------------------------------------------------
@@ -406,16 +431,24 @@ def token_nll(cfg: ArchConfig, head: Callable[[torch.Tensor], torch.Tensor],
     return total, valid.sum() * b
 
 
-def position_nll(cfg: ArchConfig, trees: List[Params], h: torch.Tensor,
-                 targets: torch.Tensor, *, loss_chunk: int = 512
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`token_nll` of one data position over its tp ranks' blocks:
-    an untied head's vocab columns split over the ranks and gathered
-    (:func:`sharded.gathered_logits`), a tied head whole on rank 0."""
-    if len(trees) == 1 or cfg.tie_embeddings:
+def position_nll(cfg: ArchConfig, p: Params, plan: ParallelPlan, d: int,
+                 h: torch.Tensor, targets: torch.Tensor, *,
+                 loss_chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`token_nll` of data position ``d`` over its tp ranks, the head
+    gathered at use: an untied head's vocab columns split over the ranks
+    and gathered (:func:`sharded.gathered_logits`), a tied head whole on
+    rank 0."""
+    row = plan.grid[d]
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    if len(row) == 1 or cfg.tie_embeddings:
+        hp = {key: take(p[key], row[0])}
+
         def head(x: torch.Tensor) -> torch.Tensor:
-            return lm_head(cfg, trees[0], x)
+            return lm_head(cfg, hp, x)
     else:
+        trees = [position_params(cfg, {key: p[key]}, r, len(row), dev)
+                 for r, dev in enumerate(row)]
+
         def head(x: torch.Tensor) -> torch.Tensor:
             return sharded.gathered_logits(cfg, trees, x)
     return token_nll(cfg, head, h, targets, loss_chunk=loss_chunk)

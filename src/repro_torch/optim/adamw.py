@@ -29,13 +29,19 @@ def adamw(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.95,
 
     def rule(state: Any):
         """The step's per-leaf rule; the bias corrections and the rate are
-        device scalars computed from the device step (no host sync)."""
+        device scalars computed from the device step (no host sync),
+        copied to each leaf's device where it lies on another card (a
+        block of a leaf stored over a mesh)."""
         step = state["step"] + 1
-        lr_t = lr_fn(step)
-        b1c = 1.0 - b1 ** step.float()
-        b2c = 1.0 - b2 ** step.float()
+        scalars = (lr_fn(step), 1.0 - b1 ** step.float(),
+                   1.0 - b2 ** step.float())
+        on = {}
 
         def leaf(g, p, mu, nu):
+            if p.device not in on:
+                on[p.device] = tuple(torch.as_tensor(x, device=p.device)
+                                     for x in scalars)
+            lr_t, b1c, b2c = on[p.device]
             g = g.float()
             mu = b1 * mu + (1 - b1) * g
             nu = b2 * nu + (1 - b2) * torch.square(g)

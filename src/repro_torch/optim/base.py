@@ -1,5 +1,8 @@
 """Optimizer interface: (init, update) pairs over parameter trees, and the
-leaf-by-leaf step the train loop takes."""
+leaf-by-leaf step the train loop takes.  A leaf stored as blocks
+(``distributed.blocked.Blocked``) is a node whose children are its
+blocks, so every per-leaf rule runs block by block where each block
+lies."""
 
 from __future__ import annotations
 
@@ -7,6 +10,8 @@ from typing import Any, Callable, List, NamedTuple, Tuple
 
 import torch
 import torch.utils._pytree as pytree
+
+from repro_torch.distributed.blocked import tree_like
 
 #: leaf -> (update f32, *new state leaves): the per-leaf rule of an update
 LeafRule = Callable[..., Tuple[torch.Tensor, ...]]
@@ -31,8 +36,10 @@ class Optimizer(NamedTuple):
 def map_leaves(fn: Callable[..., Tuple], *trees: Any) -> List[Any]:
     """``fn`` over the leaves of trees of one structure; its tuple results
     come back as one tree each."""
-    flat = [pytree.tree_flatten(t)[0] for t in trees]
-    spec = pytree.tree_flatten(trees[0])[1]
+    flat, specs = zip(*(pytree.tree_flatten(t) for t in trees))
+    spec = specs[0]
+    if any(s != spec for s in specs[1:]):
+        raise ValueError("trees of different structures or block layouts")
     outs = [fn(*leaves) for leaves in zip(*flat)]
     return [pytree.tree_unflatten(list(o), spec) for o in zip(*outs)]
 
@@ -58,7 +65,9 @@ def step_leaves(rule: LeafRule, grads: Any, params: Any,
     """(new params, *new state trees): ``rule`` and the update's
     application per leaf, a large leaf a slice of rows at a time (each
     slice written into the leaf's new tensors, which no one else holds
-    yet)."""
+    yet).  A state leaf laid out otherwise than its parameter (the JAX
+    package's ZeRO-1 split of the moments over ``("pod", "data")``) is
+    stepped in the parameter's layout and stored back in its own."""
     def one(g, p, *s):
         if p.numel() <= ROW_STEP_ELEMENTS or p.dim() < 2:
             u, *new_s = rule(g, p, *s)
@@ -72,4 +81,7 @@ def step_leaves(rule: LeafRule, grads: Any, params: Any,
             for dst, src in zip(out[1:], new_s):
                 dst[sl] = src
         return tuple(out)
-    return map_leaves(one, grads, params, *state)
+    new_params, *new_state = map_leaves(
+        one, grads, params, *(tree_like(s, params) for s in state))
+    return [new_params] + [tree_like(n, s)
+                           for n, s in zip(new_state, state)]

@@ -25,10 +25,16 @@ def sgd_momentum(lr: Union[float, Callable], momentum: float = 0.9,
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def rule(state: Any):
+        """The per-leaf rule; the rate is copied to each leaf's device
+        where it lies on another card (a block stored over a mesh)."""
         step = state["step"] + 1
-        lr_t = lr_fn(step)
+        rate = lr_fn(step)
+        on = {}
 
         def leaf(g, p, v):
+            if p.device not in on:
+                on[p.device] = torch.as_tensor(rate, device=p.device)
+            lr_t = on[p.device]
             g = g.float()
             v = momentum * v + g
             d = g + momentum * v if nesterov else v

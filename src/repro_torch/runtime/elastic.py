@@ -4,9 +4,10 @@ device count.
 Counterpart of ``repro/runtime/elastic.py``.  Checkpoints are logical
 (mesh-free manifests of full arrays), so scaling is: drain, commit a
 checkpoint, ``plan_mesh(surviving_devices)``, restore onto the new mesh.
-For in-flight resharding (no restart) :func:`reshard` places every leaf
-as the new plan's shardings say: a leaf whose home device does not change
-is not copied.
+For in-flight resharding (no restart) :func:`reshard` stores every leaf
+as the new plan's blocks: each new block is gathered from the pieces of
+the old blocks it covers (a block that stays where it is is not copied),
+so no leaf is ever whole on one card on the way.
 
 A device list is a list of ``torch.device`` s (or their names) and may
 name one device several times: one host process drives every position,
@@ -66,7 +67,8 @@ def plan_mesh(devices: Optional[Sequence[Any]] = None,
 
 
 def reshard(cfg: ArchConfig, state: Any, new_plan: ParallelPlan) -> Any:
-    """A params-shaped tree placed as the new plan's shardings say."""
+    """A params-shaped tree (tensors, or another plan's blocks) stored as
+    the new plan's blocks (``shard_params``)."""
     return shard_params(cfg, new_plan, state)
 
 

@@ -19,8 +19,11 @@ state (O(1), zero-copy):
 * **failure injection** — deterministic hooks for tests (kill an
   executor, corrupt a loss, delay a straggler).
 
-A step's metrics come to the host in one copy (:func:`_to_host`), the
-step's one host sync, and :func:`_finite` reads the loss there.
+The state may be stored as blocks over a mesh
+(``distributed.blocked.Blocked``): the store holds the state as one
+object, so the fork, the abort and the commit never look inside it, and a
+rolled-back step leaves every block as it was.  A step's metrics come to
+the host in one copy (:func:`_to_host`), the step's one host sync, and :func:`_finite` reads the loss there.
 ``state`` follows the committed state (the store's ROOT), so the trainer
 holds one state between steps and two during a step, never the one it
 started from as well.
@@ -43,10 +46,11 @@ from repro_torch.runtime.train_loop import TrainState
 
 
 def _to_host(metrics: Dict[str, Any]) -> Dict[str, float]:
-    """Every metric of a step as a float, in one device-to-host copy."""
+    """Every metric of a step as a float, in one device-to-host copy (the
+    metrics of a step over a mesh gathered onto the first one's card)."""
     names = list(metrics)
-    vals = torch.stack([torch.as_tensor(metrics[k]).float().reshape(())
-                        for k in names]).tolist()
+    vals = [torch.as_tensor(metrics[k]).float().reshape(()) for k in names]
+    vals = torch.stack([v.to(vals[0].device) for v in vals]).tolist()
     return dict(zip(names, vals))
 
 

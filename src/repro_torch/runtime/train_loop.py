@@ -11,13 +11,19 @@ back to it for free.  The metrics are device scalars; nothing here syncs
 with the host.
 
 Over a mesh (a ``Model`` with a training plan) one host process drives
-every position, as XLA's partitioned step does in the JAX package: each
-data position's share of the loss (``Model.position_loss``) is
-differentiated on its own, through its rows and its model positions'
-blocks of the parameters, and the data positions' gradients are summed in
-position order into an f32 accumulator (the reduce-scatter of FSDP leaves
-and the all-reduce of replicated ones, in one order whatever the layout).
-The optimizer then updates each leaf where it lies.
+every position, as XLA's partitioned step does in the JAX package.  The
+state is stored as blocks (:func:`init_train_state`, ``shard_params``):
+each parameter, moment and accumulator leaf a
+:class:`~repro_torch.distributed.blocked.Blocked` whose blocks lie on the
+cards of the mesh positions that own them.  Each data position's share of
+the loss (``Model.position_loss``) is differentiated on its own, through
+its rows and the pieces of the blocks its model positions gather at use;
+autograd returns each block's gradient on the block's own card, and the
+data positions' gradients are added block by block, in position order,
+into an f32 accumulator laid out as the parameters (or ``grad_shardings``)
+say: the reduce-scatter of FSDP leaves and the all-reduce of replicated
+ones, in one order whatever the layout, and no position's whole gradient
+tree on one card.  The optimizer then updates each block where it lies.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
-from repro_torch.distributed.sharding import place
+from repro_torch.distributed import blocked
+from repro_torch.distributed.sharding import shard_params
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import loss_mask
 from repro_torch.optim import (
@@ -49,11 +56,21 @@ def init_train_state(model: Model, optimizer: Optimizer,
                      generator: torch.Generator, *,
                      compress: Optional[str] = None) -> TrainState:
     """Random weights from ``generator`` (on its device), a fresh
-    optimizer state and step 0."""
+    optimizer state and step 0.  Over a training plan the parameters are
+    stored as blocks (``shard_params``; the whole tree is dropped once
+    blocked) and the optimizer state is made from them, block by block,
+    then laid out as ``param_shardings`` says for it (the JAX package's
+    placement of the state)."""
     params = model.init(generator)
+    plan = model.plan
+    if plan.dp_axes:
+        params = shard_params(model.cfg, plan, params)
+        opt_state = shard_params(model.cfg, plan, optimizer.init(params))
+    else:
+        opt_state = optimizer.init(params)
     return TrainState(
         params=params,
-        opt_state=optimizer.init(params),
+        opt_state=opt_state,
         ef=ef_init(params) if compress else None,
         step=torch.zeros((), dtype=torch.int32, device=generator.device),
     )
@@ -78,20 +95,19 @@ def sharded_value_and_grad(model: Model, params: Any,
                            batch: Dict[str, Any], grad_shardings: Any = None
                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                                       Any]:
-    """:func:`value_and_grad` over the model's mesh: data position ``d``'s
-    loss ``nll_d / N + w / D · aux_d`` (``N`` the batch's count of positions
-    carrying loss, ``D`` the data positions, ``w`` the aux weight) is
-    differentiated on its own and its gradients added, position by
-    position, into an f32 accumulator laid out as ``grad_shardings`` says;
-    the sum is the single-device loss's gradient.  The loss and metrics are
-    the positions' :meth:`Model.combine`; the gradients come back in each
-    leaf's type."""
+    """:func:`value_and_grad` over the model's mesh, on parameters stored
+    whole or as blocks: data position ``d``'s loss ``nll_d / N + w / D ·
+    aux_d`` (``N`` the batch's count of positions carrying loss, ``D`` the
+    data positions, ``w`` the aux weight) is differentiated on its own and
+    its gradients (each block's on the block's device) added, position by
+    position, into an f32 accumulator laid out as ``grad_shardings`` says
+    (by default as the parameters are); the sum is the single-device
+    loss's gradient.  The loss and metrics are the positions'
+    :meth:`Model.combine`; the gradients come back in each leaf's type, in
+    the accumulator's layout."""
     flat, spec = pytree.tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in flat]
     tree = pytree.tree_unflatten(leaves, spec)
-    places = (pytree.tree_flatten(grad_shardings,
-                                  is_leaf=lambda x: x is None)[0]
-              if grad_shardings is not None else [None] * len(flat))
     n_dp, w = model.plan.dp_size, model.moe_aux_weight
     s = batch["tokens"].shape[1]
     count = torch.clamp(loss_mask(model.cfg, s, batch["tokens"].device).sum()
@@ -101,20 +117,35 @@ def sharded_value_and_grad(model: Model, params: Any,
     for d in range(n_dp):
         nll, n_d, aux = model.position_loss(tree, batch, d)
         loss_d = nll / count.to(nll.device) + (w / n_dp) * aux
-        grads = torch.autograd.grad(loss_d, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, grads)]
+        # one thread runs the backward on every card: a remat'd layer spans
+        # its model positions' cards, and two device threads unpacking one
+        # checkpointed region would both recompute it
+        with torch.autograd.set_multithreading_enabled(False):
+            grads = torch.autograd.grad(loss_d, leaves, allow_unused=True)
+        grads = pytree.tree_unflatten(
+            [torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)], spec)
         if acc is None:
             # a copy: the accumulator is this step's own to add into
-            acc = [place(g.to(torch.float32, copy=True), sh)
-                   for g, sh in zip(grads, places)]
+            acc = lay_out(pytree.tree_map(
+                lambda g: g.to(torch.float32, copy=True), grads),
+                grad_shardings)
         else:
-            for a, g in zip(acc, grads):
-                a.add_(g.to(a.device))
+            blocked.map_leaves(blocked.add_into, acc, grads)
+        del grads
         parts.append((nll.detach(), n_d, aux.detach()))
     loss, metrics = model.combine(parts)
-    grads = [a.to(p.dtype) for a, p in zip(acc, flat)]
-    return loss, metrics, pytree.tree_unflatten(grads, spec)
+    grads = blocked.map_leaves(
+        lambda a, p: pytree.tree_map(lambda x: x.to(p.dtype), a), acc, params)
+    return loss, metrics, grads
+
+
+def lay_out(tree: Any, shardings: Any) -> Any:
+    """``tree`` laid out as ``shardings`` says (``None``, or a ``None``
+    leaf: as it lies)."""
+    if shardings is None:
+        return tree
+    return blocked.map_leaves(blocked.lay_out, tree, shardings)
 
 
 def build_train_step(
@@ -132,7 +163,8 @@ def build_train_step(
     in an f32 accumulator; ``grad_shardings`` (e.g. ``param_shardings(...,
     zero1=True)``, the JAX package's ZeRO layout) lays that accumulator out
     (``None`` leaves and the single-device plan's tree of ``None`` change
-    nothing); ``compress`` runs the gradients through error-feedback
+    nothing), and the gradients are laid out as the parameters before the
+    optimizer; ``compress`` runs the gradients through error-feedback
     compression; ``clip_norm`` clips by global norm."""
     distributed = model.plan.is_distributed
 
@@ -141,12 +173,6 @@ def build_train_step(
             return sharded_value_and_grad(model, params, batch,
                                           grad_shardings)
         return value_and_grad(model, params, batch)
-
-    def lay_out(tree: Any) -> Any:
-        if grad_shardings is None:
-            return tree
-        return pytree.tree_map(place, tree, grad_shardings,
-                               is_leaf=lambda x: x is None)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if accum_steps == 1:
@@ -163,14 +189,17 @@ def build_train_step(
                 l_i, _, g = grad_fn(state.params,
                                     {k: v[i] for k, v in mb.items()})
                 # the accumulator is this step's own: add into it
-                grads = (lay_out(pytree.tree_map(lambda x: x.float(), g))
-                         if grads is None else pytree.tree_map(
-                             lambda a, x: a.add_(x.to(a.device)), grads, g))
+                grads = (lay_out(pytree.tree_map(lambda x: x.float(), g),
+                                 grad_shardings)
+                         if grads is None else blocked.map_leaves(
+                             blocked.add_into, grads, g))
                 loss = loss + l_i
             grads = pytree.tree_map(lambda g: g / accum_steps, grads)
             loss = loss / accum_steps
             metrics = {"xent": loss, "moe_aux": torch.zeros_like(loss)}
 
+        # each leaf's gradient where its parameter lies
+        grads = blocked.tree_like(grads, state.params)
         ef = state.ef
         if compress and ef is not None:
             grads, ef = compressed_gradients(grads, ef, method=compress)

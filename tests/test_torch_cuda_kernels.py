@@ -14,6 +14,7 @@ with each f32 operand split into bf16 terms
 """
 
 import dataclasses
+import json
 import shutil
 import subprocess
 
@@ -766,3 +767,91 @@ def test_tp2_engine_one_shard_a_card(gen, path):
                        "tp1": dict(device="cuda:0"),
                        "cpu": dict(tp=2, device="cpu")}, path, name)
         assert out["cards"] == out["tp1"] == out["cpu"], name
+
+
+def card_mesh_state(name, devices, seed=0):
+    """``name`` at full width and depth in bf16 over ``plan_mesh(devices)``
+    (prefer model 2 for the SSM config, 1 for the dense), its state stored
+    as blocks from the port's seeded init on the first card: (model, step,
+    state)."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import plan_mesh
+    from repro_torch.runtime.train_loop import build_train_step, \
+        init_train_state
+
+    cfg = get_config(name)
+    plan = plan_mesh(devices, prefer_model=2 if cfg.family == "ssm" else 1)
+    model = Model(cfg, plan=plan)
+    opt = adamw(1e-4)
+    state = init_train_state(model, opt, torch.Generator(
+        device=devices[0]).manual_seed(seed))
+    return model, build_train_step(model, opt, clip_norm=1.0), state
+
+
+def card_batch(cfg, b, s, seed=7):
+    from repro_torch.data import SyntheticLMPipeline
+
+    return SyntheticLMPipeline(cfg, batch=b, seq=s, seed=seed,
+                               device="cuda:0").next()
+
+
+def test_granite_trains_over_four_cards_a_quarter_of_its_state_a_card(gen):
+    """``granite-8b`` at full width and depth in bf16 (b 4 × s 2048) over
+    (data 4, model 1) of cuda:0..3, two steps of ``build_train_step``:
+    finite losses, every card's peak under 80 GB, and each card's stored
+    parameter and moment bytes within 10% of a quarter of the state's.
+    One device would hold about 132 GB (16.5 GB of bf16 weights, 66.0 of
+    f32 moments, 33.0 of the f32 accumulator, 16.5 of one position's
+    gradients): it does not fit one card, and is not run.  Prints each
+    card's peak and stored bytes (``-s``)."""
+    from repro_torch.distributed.blocked import stored_bytes
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip("needs 4 cards: one data position a card")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    model, step, state = card_mesh_state("granite-8b", cards)
+    assert model.plan.mesh.shape == {"data": 4, "model": 1}
+    stored = stored_bytes((state.params, state.opt_state))
+    total = sum(stored.values())
+    batch = card_batch(model.cfg, 4, 2048)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    losses = []
+    for _ in range(2):
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+    peaks = {str(c): round(torch.cuda.max_memory_allocated(c) / 1e9, 2)
+             for c in cards}
+    print("FSDP_4CARD " + json.dumps({
+        "card": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip().splitlines(),
+        "losses": losses, "step_peak_gb": peaks,
+        "stored_gb": {str(d): round(v / 1e9, 3) for d, v in stored.items()},
+        "state_gb": round(total / 1e9, 3)}))
+    assert all(np.isfinite(losses))
+    assert all(p < 80 for p in peaks.values()), peaks
+    assert set(stored) == set(cards)
+    for d, v in stored.items():
+        assert abs(v - total / 4) <= 0.1 * total / 4, (d, v, total)
+
+
+def test_mamba2_one_position_a_card_is_the_one_card_mesh(gen):
+    """``mamba2-2.7b`` at full width and depth in bf16 (b 2 × s 2048) over
+    (data 2, model 2) one position a card, against the same mesh on cuda:0
+    alone: the first step's loss within 2**-7 relative (the same
+    arithmetic, the partial sums crossing between the cards)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards: one mesh position a card")
+    out = []
+    for devices in (["cuda:0"] * 4, [f"cuda:{i}" for i in range(4)]):
+        model, step, state = card_mesh_state("mamba2-2.7b", devices)
+        assert model.plan.mesh.shape == {"data": 2, "model": 2}
+        _, met = step(state, card_batch(model.cfg, 2, 2048))
+        out.append(float(met["loss"]))
+        del model, step, state, met
+        torch.cuda.empty_cache()
+    print(f"MAMBA2_4CARD first losses (one card, four cards): {out}")
+    assert abs(out[1] / out[0] - 1) <= 2 ** -7, out

@@ -58,6 +58,7 @@ from repro.runtime.train_loop import TrainState as JaxTrainState
 from repro.runtime.train_loop import build_train_step as jax_build
 from repro_torch.configs import get_config as port_config
 from repro_torch.configs.base import reduced as port_reduced
+from repro_torch.distributed import blocked
 from repro_torch.distributed.collectives import (
     allreduce_grads_over_pod,
     psum_quantized,
@@ -677,8 +678,9 @@ def test_elastic_remesh_keeps_values_and_the_single_device_loss(dense):
     assert plan6.mesh.shape == {"data": 2, "model": 3}
     assert plan6.mesh.devices.size == 6
     assert ctl.events == [(8, (2, 4)), (6, (2, 3))]
-    for a, b in zip(pytree.tree_leaves(params), pytree.tree_leaves(p6)):
-        assert torch.equal(a, b)
+    # the state is stored as the new plan's blocks; gathered, the values
+    for a, b in zip(pytree.tree_leaves(params), blocked.leaves(p6)):
+        assert torch.equal(a, blocked.whole(b))
     tb = port_train.make_batch(cfg, 11, b=6)[1]
     want, _ = Model(cfg, attn_chunk=CHUNK, loss_chunk=CHUNK).loss(params, tb)
     # 4 heads, d_ff 256 and vocab 256 over 3 positions: uneven parts
@@ -702,20 +704,22 @@ def test_plan_mesh_without_devices_needs_cuda():
 
 @pytest.mark.parametrize("name", ["mamba2-2.7b", "zamba2-7b"])
 def test_ssm_families_train_over_the_data_axis_as_on_one_device(name):
+    """Over the data axis, and over the model axis too: the (1, 2) plan's
+    gradients are one device's (the SSD heads split over the two model
+    positions, B and C on both)."""
     cfg = dataclasses.replace(port_reduced(port_config(name)),
                               dtype="float32")
     params = Model(cfg).init(torch.Generator().manual_seed(0))
     batch = port_train.make_batch(cfg, 2)[1]
     one = Model(cfg, attn_chunk=CHUNK, loss_chunk=CHUNK)
-    model = Model(cfg, plan=plan((2, 1)), attn_chunk=CHUNK,
-                  loss_chunk=CHUNK)
     loss, _, grads = value_and_grad(one, params, batch)
-    got_loss, _, got = sharded_value_and_grad(model, params, batch)
-    assert float(got_loss) == pytest.approx(float(loss), rel=1e-5)
-    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(grads)):
-        assert not port_train.off_by(g.numpy(), w.numpy(), 1e-5).any()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg, plan=plan((1, 2)))
+    for shape in ((2, 1), (1, 2)):
+        model = Model(cfg, plan=plan(shape), attn_chunk=CHUNK,
+                      loss_chunk=CHUNK)
+        got_loss, _, got = sharded_value_and_grad(model, params, batch)
+        assert float(got_loss) == pytest.approx(float(loss), rel=1e-5)
+        for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(grads)):
+            assert not port_train.off_by(g.numpy(), w.numpy(), 1e-5).any()
 
 
 def test_loss_over_a_plan_combines_token_sums_and_counts():

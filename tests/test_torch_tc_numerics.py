@@ -440,6 +440,25 @@ def test_ssd_split_meets_tol_with_margin(case):
     assert rs["tol"] <= 1.0 and rs["raw"] <= 0.5, rs
 
 
+@pytest.mark.parametrize("N", [64, 128])
+def test_ssd_state_is_f32_grade_at_its_magnitude(N):
+    """The f32 state's error relative to its own largest magnitude at s
+    2048: within 2**-20 with the kernel's terms, whatever that magnitude
+    (the tolerance's 2e-5 is absolute); with two terms of w o x it is ~3e-6
+    of it, which misses 2e-5 once a state element passes ~7 (the card met
+    that at b 1, s 2048, N 64: tools/k4_state_error.py)."""
+    s, H, P = 2048, 3, 64
+    args = ssd_inputs(s + N, s, H, P, N)
+    f32 = (args[0].float(), *args[1:3], args[3].float(), args[4].float())
+    _, ref = ssd_scan_ref(*f32)
+    scale = float(ref.abs().max())
+    rel = {wx: float((ssd_tc(*args, dict(ssd_ops.SPLIT_TERMS, wx=wx))[1]
+                      - ref).abs().max()) / scale
+           for wx in (2, ssd_ops.SPLIT_TERMS["wx"])}
+    print(f"K4 state error over its largest magnitude by wx terms: {rel}")
+    assert rel[ssd_ops.SPLIT_TERMS["wx"]] <= 2 ** -20 < rel[2], rel
+
+
 def test_flash_one_term_p_misses():
     """P in bf16 alone: the error is reported, and it misses the margin
     somewhere, so the kernel splits P."""
