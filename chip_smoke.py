@@ -212,9 +212,23 @@ Phases (any failure exits non-zero; nothing is caught into success):
    s 2048: K4 at mamba2's H 40 and zamba2's H 56, N 64; K2 at zamba2's
    shared block, h 16 over kv 16 at hd 112, beside SDPA); then the
    ``{"kernels": [...]}`` line (K1-K4, launches summed over the main
-   paths and phases 11, 12, 13 and 15, then the per-shard rows with phase
-   14's launches and the per-position and per-model-position rows with
-   phase 15's), the card line and the final ``{"ok": true, ...}`` line.
+   paths and phases 11, 12, 13, 15 and 16, then the per-shard rows with
+   phase 14's launches and the per-position and per-model-position rows
+   with phase 15's), the card line and the final ``{"ok": true, ...}``
+   line;
+16. (run after 15, before 10) the examples' torch twins: (a)
+   ``quickstart_torch.py``, ``agentic_serve_torch.py`` and
+   ``speculative_train_torch.py`` in process inside one profiler window
+   (their K1 and K2 launches counted and traced), ``train_100m_torch.py``
+   at its full ~100M config for 30 steps, logged (and checkpointed) every
+   15 (its loss falls), and
+   ``agentic_serve_torch.py --client`` against ``python -m
+   repro_torch.launch.serve --serve`` on the card; (b) ``python -m
+   repro_torch.launch.profile_cell --device cuda`` on three cells cut to
+   one card (qwen2-1.5b ``decode_32k`` at b 16, ``prefill_32k`` at b 1,
+   mamba2-2.7b ``prefill_32k`` at b 1): the top kernels, the busy share,
+   the step ms and the roofline share (the op counter's larger term over
+   the step, at most 1.05).
 
 Every path's kernel launch counters are zeroed just before it runs and
 read just after; a kernel of the path that never launched fails the run.
@@ -229,9 +243,12 @@ import contextlib
 import dataclasses
 import gc
 import importlib
+import importlib.util
+import io
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -245,10 +262,21 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and dense
-# operations/s by input type (f32 runs outside the tensor cores)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    HBM_BW,
+    PEAK_FLOPS_BF16,
+    PEAK_FLOPS_F32,
+)
+
+# published H100 SXM peaks (NVIDIA data sheet, launch/mesh.py): HBM
+# bytes/s, and dense operations/s by input type (f32 runs outside the
+# tensor cores)
+HBM_BYTES_PER_S = HBM_BW
+PEAK_OPS_PER_S = {torch.bfloat16: PEAK_FLOPS_BF16,
+                  torch.float32: PEAK_FLOPS_F32}
 
 # (atol, rtol): |out - ref| <= atol + rtol * |ref| elementwise.  Both
 # versions take the same inputs to f32, sum in f32 in different orders
@@ -399,25 +427,11 @@ def paged_case(gen, *, b, t, kv, g, hd, page, lengths, dtype, quant=False,
 
 
 def paged_cost(case) -> tuple:
-    """(bytes, operations) this call must move and do: the cached K/V of
-    each row up to its length, the chunk, q, the output and the table
-    entries it walks."""
-    b, t, kv, g, hd = case["q"].shape
-    page = case["k_pages"].shape[1]
-    qe = case["q"].element_size()
-    pe = case["k_pages"].element_size()
-    lens = case["lengths"].tolist()
-    cached = sum(lens)
-    pages = sum(-(-n // page) for n in lens)
-    nbytes = (2 * b * t * kv * g * hd * qe          # q in, out
-              + 2 * b * t * kv * hd * qe            # chunk K/V
-              + 2 * cached * kv * hd * pe           # cached K/V
-              + 2 * pages * 4 + 2 * b * 4)          # table, page_map, lengths
-    if "k_scales" in case:
-        nbytes += 2 * pages * kv * 4
-    keys = sum(t * n + t * (t + 1) // 2 for n in lens)   # per (row group)
-    ops = 4 * hd * kv * g * keys                         # q.k and p.v
-    return nbytes, ops
+    """(bytes, operations) this call must move and do
+    (``paged_attention.ops.cost`` at the case's lengths)."""
+    return paged_ops.cost(case["q"], case["k_pages"],
+                          case["lengths"].tolist(),
+                          quantized="k_scales" in case)
 
 
 def bound_ms(nbytes: int, ops: int, dtype) -> tuple:
@@ -436,16 +450,10 @@ def cached_case(case) -> dict:
 
 
 def cached_cost(case) -> tuple:
-    """(bytes, operations) of paged_attention: each row's cached K/V up to
-    its length, q, the output, the table entries it walks, the lengths."""
-    b, kv, g, hd = case["q"].shape
-    page = case["k_pages"].shape[1]
-    lens = case["lengths"].tolist()
-    pages = sum(-(-n // page) for n in lens)
-    nbytes = (2 * b * kv * g * hd * case["q"].element_size()
-              + 2 * sum(lens) * kv * hd * case["k_pages"].element_size()
-              + pages * 4 + b * 4)
-    return nbytes, 4 * hd * kv * g * sum(lens)
+    """(bytes, operations) of paged_attention
+    (``paged_attention.ops.cached_cost`` at the case's lengths)."""
+    return paged_ops.cached_cost(case["q"], case["k_pages"],
+                                 case["lengths"].tolist())
 
 
 def ragged_lengths(gen, b: int, longest: int) -> list:
@@ -471,7 +479,6 @@ def ssd_case(gen, *, s, H=80, P=64, N=128, dtype=torch.bfloat16, b=1):
             F.silu(rand(b, s, N)).to(dtype), F.silu(rand(b, s, N)).to(dtype))
 
 
-SSD_ROWS = 64    # the bf16 kernel's row tile
 
 # ms of the earlier bf16 designs at the main paths' shapes, cold L2
 # (PERF.md's "earlier ms" column: chip_smoke.py on an NVIDIA H100 80GB HBM3
@@ -491,18 +498,8 @@ CUDA_CORE_MS = {("flash_attention", 1023): 0.7961,
 
 
 def ssd_cost(x, B) -> tuple:
-    """(bytes, operations) of the SSD scan: x, B, C, dt and A read once, y
-    and the f32 state written once; the products of the chunked form at
-    the kernel's row tile Q (C.B over the causal half of each chunk once
-    for all heads, then per head G.x, C.S and the state update)."""
-    b, s, H, P = x.shape
-    N = B.shape[-1]
-    el = x.element_size()
-    nbytes = (2 * x.numel() * el + 2 * B.numel() * el + b * s * H * 4
-              + H * 4 + b * H * N * P * 4)
-    tri = s * (SSD_ROWS + 1) // 2          # causal (q, k) pairs per row tile
-    macs = b * (tri * N + H * (tri * P + 2 * s * N * P))
-    return nbytes, 2 * macs
+    """(bytes, operations) of the SSD scan (``ssd_scan.ops.cost``)."""
+    return ssd_ops.cost(x, B)
 
 
 def flash_case(gen, *, s, h=12, kv=2, hd=128, dtype=torch.bfloat16):
@@ -512,10 +509,8 @@ def flash_case(gen, *, s, h=12, kv=2, hd=128, dtype=torch.bfloat16):
 
 
 def flash_cost(q, k) -> tuple:
-    b, s, h, hd = q.shape
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    ops = 4 * hd * h * b * s * (s + 1) // 2
-    return nbytes, ops
+    """(bytes, operations) of flash attention (``flash_attention.ops.cost``)."""
+    return flash_ops.cost(q, k)
 
 
 # ---------------------------------------------------------------------------
@@ -4031,7 +4026,7 @@ def forced_splits(n: int):
 
 def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
                  explore: dict, door: dict, families: dict,
-                 train: dict, tp: dict, dist: dict) -> list:
+                 train: dict, tp: dict, dist: dict, ex: dict) -> list:
     """Kernel rows: K1 and K2 at the fused dense path's shapes, K3 at path
     B's, K4 at path A's; K1's and K2's launches are the fused dense
     path's, the public API phase's, the front door's and phases 11 and
@@ -4110,7 +4105,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         "launches": main["launches"]["paged_chunk_attention"]
         + explore["launches"]["paged_chunk_attention"]
         + door["launches"]["paged_chunk_attention"]
-        + family_launches(families, "paged_chunk_attention"),
+        + family_launches(families, "paged_chunk_attention")
+        + phase16_launches(ex, "paged_chunk_attention"),
         "max_abs_err": d["max_abs_err"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
@@ -4146,7 +4142,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         + door["launches"]["flash_attention"]
         + family_launches(families, "flash_attention")
         + train["qwen2-1.5b"]["launches"]["flash_attention"]
-        + dist["qwen2-1.5b"]["launches"]["flash_attention"],
+        + dist["qwen2-1.5b"]["launches"]["flash_attention"]
+        + phase16_launches(ex, "flash_attention"),
         "max_abs_err": f["max_abs_err"], "ms": f["ms"],
         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
@@ -4213,7 +4210,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         "launches": ssm["launches"]["ssd_scan"]
         + family_launches(families, "ssd_scan")
         + train["mamba2-2.7b"]["launches"]["ssd_scan"]
-        + dist["mamba2-2.7b"]["launches"]["ssd_scan"],
+        + dist["mamba2-2.7b"]["launches"]["ssd_scan"]
+        + phase16_launches(ex, "ssd_scan"),
         "max_abs_err": d["max_abs_err"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
@@ -4310,6 +4308,188 @@ def family_timing(gen, timer, families: dict) -> None:
     log("family kernel rows: " + json.dumps(out))
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the examples' torch twins and profile_cell on the card
+# ---------------------------------------------------------------------------
+
+#: (a) the twins run in process: (script, argv, marker lines)
+TWINS = (("quickstart_torch", [], ("-ESTALE", "quickstart complete")),
+         ("agentic_serve_torch", [], ("committing branch",
+                                      "final sequence")),
+         ("speculative_train_torch", [], ("speculative training complete",)))
+#: train_100m_torch.py at its full 100M config, cut to this many steps
+TRAIN_100M_STEPS = 30
+#: (b) profile_cell --device cuda's cells: (arch, shape, one-card batch)
+PROFILE_CELLS = (("qwen2-1.5b", "decode_32k", 16),
+                 ("qwen2-1.5b", "prefill_32k", 1),
+                 ("mamba2-2.7b", "prefill_32k", 1))
+#: a step faster than the op counter's bound would mean the counter
+#: over-counts: the share may pass 1 by the timing noise only
+ROOFLINE_SHARE_MAX = 1.05
+#: the kernels' function names by wrapper, as the tracer reports them
+KERNEL_EVENTS = {"paged_chunk_attention": ("paged_tc_kernel",
+                                           "paged_chunk_attention_kernel",
+                                           "paged_chunk_combine_kernel"),
+                 "flash_attention": ("flash_attention_tc_kernel",
+                                     "flash_attention_kernel"),
+                 "ssd_scan": ("ssd_scan_tc_kernel", "ssd_scan_kernel")}
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv: list, markers=()) -> str:
+    """Run an example twin's ``main(argv)`` in process, its output kept
+    (and its last lines logged); fail unless every marker line is in it."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        load_example(name).main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines()[-3:]:
+        log(f"  {name}: {line[:150]}")
+    for m in markers:
+        if m not in text:
+            fail(f"phase 16: {name} printed no {m!r} line")
+    return text
+
+
+def traced_kernels(prof) -> dict:
+    """Each wrapper's kernels the tracer saw, by wrapper name."""
+    out = {name: 0 for name in KERNEL_EVENTS}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, fns in KERNEL_EVENTS.items():
+            if any(f in e.name for f in fns):
+                out[name] += 1
+    return out
+
+
+def client_run() -> dict:
+    """``agentic_serve_torch.py --client`` against ``python -m
+    repro_torch.launch.serve --serve 127.0.0.1:0`` on the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--serve",
+         "127.0.0.1:0"], cwd=ROOT, env=src_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        first = proc.stdout.readline()
+        if not first.startswith("serving on http://"):
+            fail(f"phase 16: the front door did not start: {first!r} "
+                 f"{proc.stderr.read()[-2000:]}")
+        url = first.split()[2]
+        text = run_example("agentic_serve_torch", ["--client", url])
+        proc.send_signal(signal.SIGINT)
+        rest, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or text.count("final sequence") != 3:
+        fail(f"phase 16: --client run failed (rc {proc.returncode}): "
+             f"{text[-1000:]} {err[-2000:]}")
+    log(f"  front door: {rest.strip()}")
+    return {"seconds": round(time.perf_counter() - t0, 1)}
+
+
+def phase_examples() -> dict:
+    """(a) The four examples' torch twins on the card: quickstart,
+    agentic_serve and speculative_train in process inside one profiler
+    window that counts their K1 and K2 launches against the wrappers'
+    counts; train_100m at its full 100M config for TRAIN_100M_STEPS steps
+    (its loss must fall); agentic_serve --client against the port's front
+    door as a subprocess.  (b) profile_cell --device cuda on
+    PROFILE_CELLS: top kernels, busy share, step ms and the roofline share
+    (at most ROOFLINE_SHARE_MAX)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_cell import profile_on_card
+
+    log("== phase 16: the examples' torch twins and profile_cell on the card")
+    out: dict = {"parts_s": {}}
+    t = time.perf_counter()
+    zero_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name, argv, markers in TWINS:
+            run_example(name, argv, markers)
+        torch.cuda.synchronize()
+    counted = launch_counts()
+    traced = traced_kernels(prof)
+    out["twins_launches"] = {k: counted[k] for k in (
+        "paged_chunk_attention", "flash_attention")}
+    out["twins_traced"] = {k: traced[k] for k in (
+        "paged_chunk_attention", "flash_attention")}
+    log(f"phase 16 (a) twins: launches {out['twins_launches']}, traced "
+        f"{out['twins_traced']}")
+    for k, n in out["twins_launches"].items():
+        if not n:
+            fail(f"phase 16: the twins never launched {k}")
+        if out["twins_traced"][k] > n:
+            fail(f"phase 16: the tracer saw more {k} kernels than launched")
+    out["parts_s"]["twins"] = round(time.perf_counter() - t, 1)
+
+    t = time.perf_counter()
+    zero_launches()
+    with tempfile.TemporaryDirectory() as ckpt:
+        # two checkpoints: each run() of the trainer commits one as it
+        # returns, and a BranchFS commit of the ~1.2 GB f32 state took ~7 s
+        # on the card's host (PERF.md, phase 16), so the twin logs every 15
+        # steps where the JAX example's cadence would commit 30 times
+        text = run_example("train_100m_torch", [
+            "--steps", str(TRAIN_100M_STEPS), "--ckpt-dir", ckpt,
+            "--ckpt-every", str(TRAIN_100M_STEPS),
+            "--log-every", str(TRAIN_100M_STEPS // 2)], ("->",))
+    out["train_100m_launches"] = launch_counts()["flash_attention"]
+    out["train_100m_loss"] = next(ln for ln in text.splitlines()
+                                  if ln.startswith("loss "))
+    if not out["train_100m_launches"]:
+        fail("phase 16: train_100m_torch never launched flash_attention")
+    out["parts_s"]["train_100m"] = round(time.perf_counter() - t, 1)
+    out["client"] = client_run()
+    out["parts_s"]["client"] = out["client"]["seconds"]
+
+    t = time.perf_counter()
+    out["cells"] = {}
+    for arch, shape, batch in PROFILE_CELLS:
+        zero_launches()
+        res = profile_on_card(arch, shape, batch, top=8)
+        res["launches"] = {k: v for k, v in launch_counts().items() if v}
+        for name, n, ms in res.pop("top_kernels"):
+            log(f"  {arch} {shape}: {ms:9.3f} ms {n:5d}x {name[:80]}")
+        log(f"phase 16 (b) {arch} {shape} ({res['reduction']}): step "
+            f"{res['step_ms']:.2f} ms, busy {res['busy_share']:.3f} of the "
+            f"traced step ({res['busy_of_step']:.3f} of the untraced), "
+            f"roofline share {res['roofline_share']:.3f} of its "
+            f"{res['bound_by']} bound (compute {res['t_compute_ms']:.2f} "
+            f"ms, memory {res['t_memory_ms']:.2f} ms), launches "
+            f"{res['launches']}")
+        if res["roofline_share"] > ROOFLINE_SHARE_MAX:
+            fail(f"phase 16: {arch} {shape} steps faster than its counted "
+                 f"bound ({res['roofline_share']:.3f})")
+        out["cells"][f"{arch} {shape}"] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["parts_s"]["profile_cell"] = round(time.perf_counter() - t, 1)
+    log("phase 16 parts (s): " + json.dumps(out["parts_s"]))
+    return out
+
+
+def phase16_launches(ex: dict, name: str) -> int:
+    """One kernel's launches over phase 16's runs (the twins, the 100M
+    training, the profiled cells)."""
+    n = ex["twins_launches"].get(name, 0)
+    if name == "flash_attention":
+        n += ex["train_100m_launches"]
+    return n + sum(c["launches"].get(name, 0) for c in ex["cells"].values())
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test runs on "
@@ -4366,8 +4546,9 @@ def main() -> None:
     train = timed("phase 13", phase_train)
     tp = timed("phase 14", phase_tp)
     dist = timed("phase 15", phase_dist, train)
+    ex = timed("phase 16", phase_examples)
     rows = timed("phase 10", phase_timing, gen, dense, legacy, ssm, explore,
-                 door, families, train, tp, dist)
+                 door, families, train, tp, dist, ex)
     log(f"total {time.perf_counter() - t0:.1f} s after the build; by phase "
         f"{json.dumps(secs)}")
     keys = ("prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",
@@ -4387,6 +4568,7 @@ def main() -> None:
     log("training phase (13): " + json.dumps(train))
     log("training over a mesh (15, data 2 x model 2 on one card): "
         + json.dumps(dist))
+    log("examples and profiled cells (16): " + json.dumps(ex))
     log("tensor-parallel phase (14, tp 2 on one card): " + json.dumps(
         {name: {path: {k: r[k] for k in (
             "prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",

@@ -16,7 +16,11 @@ Nothing here materialises a whole leaf unless asked to (:func:`whole`,
 the checkpoint's host copy): a training forward takes each position's
 part of a leaf at use (:func:`take`, a differentiable concatenation of the
 pieces of the blocks it covers, copied onto the position's device), so
-autograd returns each block's gradient on the block's own device.
+autograd returns each block's gradient on the block's own device.  A
+:func:`take` whose part spans several blocks along a dim reports the
+all-gather it stands for (the SPMD program gathers the part from the
+positions along that dim's axes) to the active op counter
+(:mod:`repro_torch.accounting`).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch import accounting
 from repro_torch.distributed.mesh import NamedSharding, Region, split_range
 
 
@@ -124,12 +129,40 @@ def take(x: Any, device: torch.device, dim: Optional[int] = None,
     concatenated in order (a position's part of a leaf at use)."""
     full = [(0, n) for n in x.shape]
     if dim is None:
-        return piece(x, tuple(full), device)
-    out = []
-    for start, size in ranges:
-        full[dim] = (start, size)
-        out.append(piece(x, tuple(full), device))
-    return out[0] if len(out) == 1 else torch.cat(out, dim=dim)
+        regions = [tuple(full)]
+    else:
+        regions = []
+        for start, size in ranges:
+            full[dim] = (start, size)
+            regions.append(tuple(full))
+    out = [piece(x, r, device) for r in regions]
+    out = out[0] if len(out) == 1 else torch.cat(out, dim=dim)
+    if accounting.active() and is_blocked(x):
+        axes = spanned_axes(x, regions)
+        if axes:
+            accounting.collective("all-gather",
+                                  out.numel() * out.element_size(), 1, axes)
+    return out
+
+
+def spanned_axes(x: Blocked, regions: Sequence[Region]) -> Tuple[str, ...]:
+    """The mesh axes of the dims along which ``regions`` of ``x`` cover
+    more than one block (the axes a gather of them spans)."""
+    parts = x.sharding.parts(x.ndim)
+    axes: List[str] = []
+    for k in range(x.ndim):
+        if parts[k] == 1:
+            continue
+        hit = set()
+        for region in regions:
+            start, size = region[k]
+            for i in range(parts[k]):
+                b0, bn = split_range(x.shape[k], parts[k], i)
+                if max(b0, start) < min(b0 + bn, start + size):
+                    hit.add(i)
+        if len(hit) > 1:
+            axes += [a for a in x.sharding._axes(k) if a not in axes]
+    return tuple(axes)
 
 
 def whole(x: Any, device: Any = None) -> torch.Tensor:
@@ -137,6 +170,49 @@ def whole(x: Any, device: Any = None) -> torch.Tensor:
     if device is None:
         device = (x.blocks[0] if is_blocked(x) else x).device
     return take(x, torch.device(device))
+
+
+def filled(shape: Sequence[int], dtype: torch.dtype,
+           sharding: NamedSharding, value: Optional[float] = 0.0) -> Any:
+    """A new leaf of ``shape`` laid out as ``sharding``, each block
+    allocated on its owner's device and filled with ``value`` (``None``:
+    left unwritten); one block is a plain tensor, as :func:`block`
+    stores it."""
+    def one(region: Region, device: torch.device) -> torch.Tensor:
+        size = tuple(n for _, n in region)
+        if value is None:
+            return torch.empty(size, dtype=dtype, device=device)
+        return torch.full(size, value, dtype=dtype, device=device)
+
+    devices = sharding.devices(shape)
+    blocks = [one(region, dev) for (region, _), dev
+              in zip(sharding.blocks(shape), devices)]
+    if len(blocks) == 1:
+        return blocks[0]
+    return Blocked(blocks, sharding, shape)
+
+
+def put(x: Any, region: Region, value: torch.Tensor) -> None:
+    """Write ``value`` (shaped as ``region``) into the elements of ``x``
+    (a tensor or a :class:`Blocked`) in ``region``, in place: each block
+    it covers takes its part, copied to the block's device."""
+    if not is_blocked(x):
+        dst = x
+        for dim, (lo, n) in enumerate(region):
+            if n != x.shape[dim]:
+                dst = dst.narrow(dim, lo, n)
+        dst.copy_(value)
+        return
+    for (breg, _), blk in zip(x.sharding.blocks(x.shape), x.blocks):
+        sub_dst, sub_src = [], []
+        for (lo, n), (b0, bn) in zip(region, breg):
+            a, b = max(lo, b0), min(lo + n, b0 + bn)
+            if a >= b:
+                break
+            sub_dst.append((a - b0, b - a))
+            sub_src.append((a - lo, b - a))
+        else:
+            put(blk, tuple(sub_dst), piece(value, tuple(sub_src), blk.device))
 
 
 def _own(t: torch.Tensor, src: Sequence[torch.Tensor]) -> torch.Tensor:

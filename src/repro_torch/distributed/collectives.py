@@ -14,6 +14,14 @@ from another card) and combined in shard order, so a run is reproducible
 whatever the layout; :func:`broadcast` copies a result back to every
 shard.  The training collectives return one tensor per position, as the
 JAX package's return one per shard.
+
+Each call reports the SPMD collective it stands for to the active op
+counter (:func:`repro_torch.accounting.collective`: the output-shape bytes
+on each participating position, the JAX package's accounting), over the
+mesh ``axes`` its caller names; the copies the port issues to implement it
+count as nothing more.  :func:`broadcast` reports nothing: it hands a
+replicated value (a sum's result, a normed input) to the positions that
+hold it in the SPMD program.
 """
 
 from __future__ import annotations
@@ -23,23 +31,37 @@ from typing import Any, List, Sequence
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch import accounting
 
-def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def psum(parts: Sequence[torch.Tensor], axes: Sequence[str] = ()
+         ) -> torch.Tensor:
     """The sum of the shards' partials, on the first one's device, added
-    in shard order."""
+    in shard order (an all-reduce over ``axes``)."""
+    if len(parts) > 1:
+        accounting.collective("all-reduce", _nbytes(parts[0]), len(parts),
+                              axes)
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device)
     return total
 
 
-def all_gather(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+def all_gather(parts: Sequence[torch.Tensor], dim: int,
+               axes: Sequence[str] = ()) -> torch.Tensor:
     """The shards' slices concatenated along ``dim`` in shard order, on the
-    first one's device (a vocab-sharded head's logits)."""
+    first one's device (a vocab-sharded head's logits; an all-gather over
+    ``axes``)."""
     if len(parts) == 1:
         return parts[0]
     home = parts[0].device
-    return torch.cat([p.to(home) for p in parts], dim=dim)
+    out = torch.cat([p.to(home) for p in parts], dim=dim)
+    accounting.collective("all-gather", _nbytes(out), len(parts), axes)
+    return out
 
 
 def broadcast(x: torch.Tensor, devices: Sequence[torch.device]
@@ -49,7 +71,8 @@ def broadcast(x: torch.Tensor, devices: Sequence[torch.device]
     return [x.to(d) for d in devices]
 
 
-def psum_quantized(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def psum_quantized(parts: Sequence[torch.Tensor], axes: Sequence[str] = ()
+                   ) -> List[torch.Tensor]:
     """The int8-quantized sum, on every position's device: each position's
     max scale (:func:`optim.compress.int8_compress`) is reduced to the
     largest, every part is requantized against that shared scale so the
@@ -59,14 +82,16 @@ def psum_quantized(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     from repro_torch.optim.compress import int8_compress
 
     home = parts[0].device
+    accounting.collective("all-reduce", 4, len(parts), axes)   # the scale
     scale = torch.stack([int8_compress(p)[1].to(home) for p in parts]).max()
     qs = [torch.clamp(torch.round(p.float() / scale.to(p.device)), -127, 127
                       ).to(torch.int32) for p in parts]
-    total = (psum(qs).float() * scale).to(parts[0].dtype)
+    total = (psum(qs, axes).float() * scale).to(parts[0].dtype)
     return broadcast(total, [p.device for p in parts])
 
 
-def ring_allreduce(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def ring_allreduce(parts: Sequence[torch.Tensor], axes: Sequence[str] = ()
+                   ) -> List[torch.Tensor]:
     """The sum of the positions' tensors, on every position's device, as a
     bandwidth-optimal ring: each tensor's leading dim (zero-padded to a
     multiple of ``n``) is cut into ``n`` chunks; ``n - 1`` reduce-scatter
@@ -91,6 +116,7 @@ def ring_allreduce(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
     def hop(xs: List[torch.Tensor]) -> List[torch.Tensor]:
         # position i receives from position i - 1
+        accounting.collective("collective-permute", _nbytes(xs[0]), n, axes)
         return [xs[(i - 1) % n].to(devs[i], copy=True) for i in range(n)]
 
     # reduce-scatter: after hop s position i adds its chunk (i - s - 1)
@@ -125,9 +151,9 @@ def allreduce_grads_over_pod(grads: Sequence[Any], mesh: Any, *,
     per_pos: List[List[torch.Tensor]] = [[] for _ in range(n)]
     for leaves in zip(*(f[0] for f in flats)):
         if quantized:
-            outs = [x / n for x in psum_quantized(leaves)]
+            outs = [x / n for x in psum_quantized(leaves, ("pod",))]
         else:
-            mean = psum(leaves) / n
+            mean = psum(leaves, ("pod",)) / n
             outs = broadcast(mean, [x.device for x in leaves])
         for i, x in enumerate(outs):
             per_pos[i].append(x)

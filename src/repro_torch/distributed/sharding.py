@@ -256,6 +256,34 @@ def mamba_ranges(cfg: ArchConfig, name: str, rank: int, tp: int
     return [c]                                      # norm_w, out_proj
 
 
+#: the attention block's leaves, split over the model axis by head
+ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+def kv_range(cfg: ArchConfig, rank: int, tp: int
+              ) -> Optional[Tuple[int, int]]:
+    """The kv heads tp rank ``rank``'s query heads (:func:`split_range`)
+    use, as (start, count), where they lie in one kv group or span whole
+    groups; ``None`` where they do not (or the rank has none)."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    q0, nq = split_range(h, tp, rank)
+    g = h // kv
+    k0, k1 = q0 // g, -(-(q0 + nq) // g)
+    if nq and (k1 - k0 == 1 or (q0 % g == 0 and nq % g == 0)):
+        return k0, k1 - k0
+    return None
+
+
+def heads_split(cfg: ArchConfig, tp: int) -> bool:
+    """Whether ``tp`` ranks split the attention heads: every rank's query
+    heads lie in one kv group or span whole groups.  Where they do not
+    (6 heads over 2 kv heads at tp 4: rank 1's heads [2, 4) span two groups
+    in part; qwen2-1.5b's 12 over 2 at 16), the attention block runs whole
+    on every rank, as the JAX package's ``sanitize`` replicates its leaves
+    (the heads dim does not divide), and its output is added once."""
+    return all(kv_range(cfg, r, tp) is not None for r in range(tp))
+
+
 def rank_ranges(cfg: ArchConfig, path: Path, shape: Tuple[int, ...],
                 rank: int, tp: int
                 ) -> Tuple[Optional[int], List[Tuple[int, int]]]:
@@ -264,25 +292,20 @@ def rank_ranges(cfg: ArchConfig, path: Path, shape: Tuple[int, ...],
     (:func:`spec_for_param`), contiguous parts (:func:`split_range`:
     heads, d_ff, experts, vocab); the kv-head leaves follow the query
     heads (a rank whose heads lie in one kv group takes that kv head, one
-    whose heads span whole groups takes theirs); the Mamba2 leaves split
-    by meaning (:func:`mamba_ranges`).  ``(None, [])``: the whole leaf."""
+    whose heads span whole groups takes theirs), and the attention leaves
+    are whole where the heads do not split (:func:`heads_split`); the
+    Mamba2 leaves split by meaning (:func:`mamba_ranges`).  ``(None,
+    [])``: the whole leaf."""
     name = path[-1]
     dim = _model_dim(cfg, path, shape)
     if tp == 1 or dim is None:
         return None, []
     if name in MAMBA_LEAVES:
         return dim, mamba_ranges(cfg, name, rank, tp)
+    if name in ATTN_LEAVES and not heads_split(cfg, tp):
+        return None, []
     if name in ("wk", "wv", "bk", "bv"):
-        h, kv = cfg.num_heads, cfg.num_kv_heads
-        q0, nq = split_range(h, tp, rank)
-        g = h // kv
-        k0, k1 = q0 // g, -(-(q0 + nq) // g)
-        if not (nq and (k1 - k0 == 1 or (q0 % g == 0 and nq % g == 0))):
-            raise ValueError(
-                f"tp={tp} splits {h} heads over {kv} kv heads so that rank "
-                f"{rank}'s heads [{q0}, {q0 + nq}) do not map onto whole kv "
-                "groups or one group")
-        return dim, [(k0, k1 - k0)]
+        return dim, [kv_range(cfg, rank, tp)]
     return dim, [split_range(shape[dim], tp, rank)]
 
 

@@ -9,7 +9,9 @@
   sm_90a.
 
 A wrapper runs its plain PyTorch version only for CPU tensors; for CUDA
-tensors it launches its kernel or raises.
+tensors it launches its kernel or raises; for ``meta`` tensors (the dry
+run's shape-only pass) it returns the outputs' shapes and reports its
+kernel's work (``ops.cost``) to the active op counter.
 """
 
 from repro_torch.kernels.flash_attention import flash_attention

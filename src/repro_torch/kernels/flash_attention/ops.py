@@ -6,7 +6,11 @@ CUDA tensor it launches the hand-written kernel in
 ``csrc/flash_attention.cu`` or raises — there is no fallback on the card.
 bf16 runs the tensor-core design (wgmma, TMA), f32 the CUDA-core one.
 Prompts of any length run (the kernel masks its ragged tail).
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts kernel launches.  On ``meta`` tensors (the dry run's
+shape-only pass) the wrapper computes nothing: it returns the output's
+shape and type and reports the kernel's work (:func:`cost`) to the active
+op counter (:mod:`repro_torch.accounting`); the backward's plain recompute
+runs on ``meta`` as on any device, and the counter sees its ops.
 
 :class:`FlashAttention` carries the gradient, as the JAX package's
 ``custom_vjp`` does (``repro/kernels/flash_attention/ops.py``): the
@@ -25,6 +29,7 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch import accounting
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -36,11 +41,24 @@ HEAD_DIMS = (32, 64, 112, 128, 160)
 SPLIT_TERMS = {"P": 2}
 
 
+def cost(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, int]:
+    """(bytes, operations) of one call: q, k, v read once and the output
+    written once; q.k and p.v over the causal half (the kernel skips the
+    tiles above the diagonal)."""
+    b, s, h, hd = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, 4 * hd * h * b * s * (s + 1) // 2
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor,
              v: torch.Tensor) -> torch.Tensor:
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    """The plain version for CPU tensors, the kernel for CUDA tensors, the
+    output's shape on ``meta``."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
+    if q.device.type == "meta":
+        accounting.kernel(NAME, *cost(q, k))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {q.device}")
     b, s, h, hd = q.shape

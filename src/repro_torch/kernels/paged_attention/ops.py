@@ -13,17 +13,21 @@ bf16 q (bf16 or int8 pools) runs the tensor-core walk: one launch per call,
 its page ranges split over a thread-block cluster that merges them itself.
 float32 runs the CUDA-core walk, whose split calls launch a second kernel
 that merges the splits.  ``LAUNCHES`` counts each wrapper's kernel launches
-apart.
+apart.  On ``meta`` tensors each wrapper returns the output's shape and
+type and reports its kernel's work (:func:`cost`, :func:`cached_cost`) to
+the active op counter (:mod:`repro_torch.accounting`); a meta tensor holds
+no lengths, so every table entry counts as walked.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import accounting
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref,
@@ -110,6 +114,50 @@ def _check(q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
     return quant
 
 
+def cost(q: torch.Tensor, k_pages: torch.Tensor, lengths: Sequence[int],
+         quantized: bool = False) -> Tuple[int, int]:
+    """(bytes, operations) of one :func:`paged_chunk_attention` call whose
+    rows have the cached ``lengths``: the cached K/V of each row up to its
+    length, the chunk, q, the output and the table entries it walks."""
+    b, t, kv, g, hd = q.shape
+    page = k_pages.shape[1]
+    qe = q.element_size()
+    pe = k_pages.element_size()
+    lens = list(lengths)
+    cached = sum(lens)
+    pages = sum(-(-n // page) for n in lens)
+    nbytes = (2 * b * t * kv * g * hd * qe          # q in, out
+              + 2 * b * t * kv * hd * qe            # chunk K/V
+              + 2 * cached * kv * hd * pe           # cached K/V
+              + 2 * pages * 4 + 2 * b * 4)          # table, page_map, lengths
+    if quantized:
+        nbytes += 2 * pages * kv * 4
+    keys = sum(t * n + t * (t + 1) // 2 for n in lens)   # per (row group)
+    return nbytes, 4 * hd * kv * g * keys                # q.k and p.v
+
+
+def cached_cost(q: torch.Tensor, k_pages: torch.Tensor,
+                lengths: Sequence[int]) -> Tuple[int, int]:
+    """(bytes, operations) of one :func:`paged_attention` call: each row's
+    cached K/V up to its length, q, the output, the table entries it walks,
+    the lengths."""
+    b, kv, g, hd = q.shape
+    page = k_pages.shape[1]
+    lens = list(lengths)
+    pages = sum(-(-n // page) for n in lens)
+    nbytes = (2 * b * kv * g * hd * q.element_size()
+              + 2 * sum(lens) * kv * hd * k_pages.element_size()
+              + pages * 4 + b * 4)
+    return nbytes, 4 * hd * kv * g * sum(lens)
+
+
+def _table_lengths(block_tables: torch.Tensor, k_pages: torch.Tensor
+                   ) -> list:
+    """Every row's table walked to its end: the lengths a meta call
+    counts."""
+    return [block_tables.shape[-1] * k_pages.shape[1]] * block_tables.shape[0]
+
+
 def _splits(splits: int, name: str) -> int:
     if not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"{name}: {splits} splits, not in 1..{MAX_SPLITS}")
@@ -155,6 +203,11 @@ def paged_chunk_attention(
         return paged_chunk_attention_ref(q, k_new, v_new, k_pages, v_pages,
                                          block_tables, lengths, page_map,
                                          k_scales, v_scales)
+    if q.device.type == "meta":
+        accounting.kernel(NAME, *cost(
+            q, k_pages, _table_lengths(block_tables, k_pages),
+            quantized=k_pages.dtype == torch.int8))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {q.device}")
     quant = _check(q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
@@ -218,6 +271,10 @@ def paged_attention(
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    lengths)
+    if q.device.type == "meta":
+        accounting.kernel(CACHED_NAME, *cached_cost(
+            q, k_pages, _table_lengths(block_tables, k_pages)))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"{CACHED_NAME}: no kernel for device {q.device}")
     _check_cached(q, k_pages, v_pages, block_tables, lengths)

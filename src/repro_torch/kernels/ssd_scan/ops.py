@@ -7,7 +7,11 @@ raises — there is no fallback on the card.  bf16 runs the tensor-core
 design (wgmma, TMA), f32 the CUDA-core one.  Any length runs (the kernel
 pads its ragged tail).  The kernel walks the sequence in its own row tile,
 so ``chunk`` shapes only the plain version; the result does not depend on
-it in exact arithmetic.  ``LAUNCHES`` counts kernel launches.
+it in exact arithmetic.  ``LAUNCHES`` counts kernel launches.  On ``meta``
+tensors the wrapper returns the outputs' shapes and types and reports the
+kernel's work (:func:`cost`) to the active op counter
+(:mod:`repro_torch.accounting`); the backward's recompute runs on
+``meta`` as on any device.
 
 :class:`SSDScan` carries the gradient: the JAX package's SSD scan has no
 VJP of its own (training differentiates its jnp ``ssd_chunked``), so the
@@ -24,6 +28,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch import accounting
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
@@ -36,6 +41,23 @@ HEAD_DIMS = (64, 128)      # P
 #: B^T (w o x); tests/test_torch_tc_numerics.py chose them (wx's third term
 #: keeps the state f32-grade at any magnitude: tools/k4_state_error.py)
 SPLIT_TERMS = {"W": 2, "S": 2, "wx": 3}
+#: the bf16 kernel's row tile Q (the chunk its products are formed over)
+ROWS = 64
+
+
+def cost(x: torch.Tensor, B: torch.Tensor) -> Tuple[int, int]:
+    """(bytes, operations) of one call: x, B, C, dt and A read once, y and
+    the f32 state written once; the products of the chunked form at the
+    kernel's row tile :data:`ROWS` (C.B over the causal half of each chunk
+    once for all heads, then per head G.x, C.S and the state update)."""
+    b, s, H, P = x.shape
+    N = B.shape[-1]
+    el = x.element_size()
+    nbytes = (2 * x.numel() * el + 2 * B.numel() * el + b * s * H * 4
+              + H * 4 + b * H * N * P * 4)
+    tri = s * (ROWS + 1) // 2          # causal (q, k) pairs per row tile
+    macs = b * (tri * N + H * (tri * P + 2 * s * N * P))
+    return nbytes, 2 * macs
 
 
 def _check(x, dt, A, B, C) -> None:
@@ -61,9 +83,16 @@ def _check(x, dt, A, B, C) -> None:
 def _forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, chunk: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    """The plain version for CPU tensors, the kernel for CUDA tensors, the
+    outputs' shapes on ``meta``."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, chunk)
+    if x.device.type == "meta":
+        accounting.kernel(NAME, *cost(x, B))
+        b, s, H, P = x.shape
+        return (torch.empty_like(x),
+                torch.empty((b, H, B.shape[-1], P), dtype=torch.float32,
+                            device=x.device))
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {x.device}")
     _check(x, dt, A, B, C)

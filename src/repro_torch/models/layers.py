@@ -28,10 +28,35 @@ Params = Dict[str, Any]
 # initialization helpers
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a generator on the ``meta`` device (which has none):
+    the init functions allocate their shapes there and draw nothing, the
+    counterpart of ``jax.eval_shape`` over the JAX package's init."""
+    device = torch.device("meta")
+
+
+META = MetaGenerator()
+
+
+def init_generator(generator: Optional[torch.Generator], device: Any
+                   ) -> Any:
+    """The generator an init draws from: ``generator``, or :data:`META`
+    where none is given and ``device`` is ``meta`` (nothing is drawn)."""
+    if generator is not None:
+        return generator
+    if device is not None and torch.device(device).type == "meta":
+        return META
+    raise ValueError("an init draws its weights from a seeded generator; "
+                     "only device='meta' (shapes only) needs none")
+
+
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
                dtype: torch.dtype, fan_in: Optional[int] = None
                ) -> torch.Tensor:
-    """Normal(0, 1/fan_in) weights, drawn in float32 on ``gen``'s device."""
+    """Normal(0, 1/fan_in) weights, drawn in float32 on ``gen``'s device
+    (on ``meta``: the shape only)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     if fan_in is None:
         fan_in = shape[-2] if len(shape) > 1 else shape[-1]
     std = 1.0 / math.sqrt(max(fan_in, 1))

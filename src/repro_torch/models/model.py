@@ -27,7 +27,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.collectives import psum
 from repro_torch.distributed.mesh import SINGLE_DEVICE, ParallelPlan
 from repro_torch.models import decode as D
+from repro_torch.models import plan_decode as PD
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import init_generator
 
 Params = Dict[str, Any]
 
@@ -36,9 +38,12 @@ decode_state_specs = D.decode_state_specs
 init_decode_state = D.init_decode_state
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator) -> Params:
-    """Random weights from a seeded generator, on its device."""
-    return T.init_transformer(cfg, generator)
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+                *, device: Any = None) -> Params:
+    """Random weights from a seeded generator, on its device; with no
+    generator and ``device="meta"``, the tree's shapes and types only
+    (nothing allocated or drawn: the dry run's ``jax.eval_shape``)."""
+    return T.init_transformer(cfg, init_generator(generator, device))
 
 
 @dataclass
@@ -53,9 +58,11 @@ class Model:
     def __post_init__(self):
         T.check_servable(self.cfg)
 
-    def init(self, generator: torch.Generator) -> Params:
-        """Random weights from a seeded generator, on its device."""
-        return init_params(self.cfg, generator)
+    def init(self, generator: Optional[torch.Generator] = None, *,
+             device: Any = None) -> Params:
+        """Random weights from a seeded generator, on its device (shapes
+        only on ``device="meta"``: :func:`init_params`)."""
+        return init_params(self.cfg, generator, device=device)
 
     # -- training ---------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
@@ -102,7 +109,8 @@ class Model:
         first position's device: the token sums over the counts (the
         single-device loss whatever the mask) and the mean aux loss (the
         GShard convention of the JAX package)."""
-        nll, count, aux = (psum(list(x)) for x in zip(*parts))
+        nll, count, aux = (psum(list(x), self.plan.dp_axes)
+                           for x in zip(*parts))
         xent = nll / torch.clamp(count, min=1.0)
         aux = aux / len(parts)
         return xent + self.moe_aux_weight * aux, {"xent": xent,
@@ -113,7 +121,13 @@ class Model:
                 max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The prompt (``frontend_embed``: the VLM stub's patch
-        embeddings) -> (last-position logits, decode cache)."""
+        embeddings) -> (last-position logits, decode cache).  Over a plan
+        (:mod:`models.plan_decode`): each data position's rows over its
+        model positions, the cache stored as blocks."""
+        if self.plan.is_distributed:
+            return PD.prefill(self.cfg, params, self.plan, tokens,
+                              frontend_embed, max_len=max_len,
+                              attn_chunk=self.attn_chunk)
         return D.prefill(self.cfg, params, tokens, frontend_embed,
                          max_len=max_len)
 
@@ -123,9 +137,17 @@ class Model:
         """One token per sequence: in place over a contiguous KV cache,
         out of place over an SSM cache; a hybrid cache's ``conv``/``ssm``
         out of place and its ``k``/``v`` in place (batch restored branches
-        by ``torch.cat`` or clone them first)."""
+        by ``torch.cat`` or clone them first).  Over a plan: the cache's
+        blocks (:mod:`models.plan_decode`)."""
+        if self.plan.is_distributed:
+            return PD.decode_step(self.cfg, params, self.plan, cache, tokens,
+                                  pos)
         return D.decode_step(self.cfg, params, cache, tokens, pos)
 
     def init_decode_state(self, batch: int, max_len: int,
-                          device: Any = None) -> Dict[str, torch.Tensor]:
+                          device: Any = None) -> Dict[str, Any]:
+        """A zero cache on ``device``, or over a plan laid out as its
+        blocks (``state_shardings``)."""
+        if self.plan.is_distributed:
+            return PD.init_cache(self.cfg, self.plan, batch, max_len)
         return D.init_decode_state(self.cfg, batch, max_len, device)

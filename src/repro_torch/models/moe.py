@@ -171,7 +171,8 @@ def moe_apply_sharded(cfg: ArchConfig, parts: Sequence[Params],
         ys.append(y)
         auxes.append(aux)
         e0 += p["wu"].shape[0]
-    return psum(ys).to(xs[0].dtype), psum(auxes) / len(auxes)
+    return (psum(ys, ("model",)).to(xs[0].dtype),
+            psum(auxes, ("model",)) / len(auxes))
 
 
 def moe_block(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
@@ -206,7 +207,7 @@ def moe_block(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
         y, aux = moe_apply_sharded(cfg, parts, broadcast(x_i, devices))
         ys.append(y.reshape(rows, s, d).to(x.device))
         auxes.append(aux.to(x.device))
-    return torch.cat(ys), psum(auxes) / n_dp
+    return torch.cat(ys), psum(auxes, plan.dp_axes) / n_dp
 
 
 def ffn(cfg: ArchConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:

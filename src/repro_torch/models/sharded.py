@@ -39,6 +39,11 @@ from repro_torch.models.ssm import mamba_scan
 
 Params = Dict[str, Any]
 
+#: the mesh axis the shard-local passes' sums and gathers span in a
+#: training plan (the op counter's accounting; a serving mesh's ``tp`` axis
+#: plays its part)
+AXES = ("model",)
+
 
 def shard_device(tree: Params) -> torch.device:
     """The device a shard's parameter tree lies on."""
@@ -55,14 +60,29 @@ def attention(cfg: ArchConfig, lps: Sequence[Params],
     """Causal attention over the whole sequence, each shard's heads on its
     device (the flash attention kernel at the shard's head counts, or the
     caller's ``attn``): (the output summed on shard 0, each shard's k and
-    v)."""
+    v).  Shards holding every head (:func:`replicated`) each compute the
+    whole block, and shard 0's output is added once."""
     parts, ks, vs = [], [], []
     for lp, x, pos in zip(lps, xs, positions):
         a, k, v = L.attention_block_kv(cfg, lp, x, pos, chunk, attn)
         parts.append(a)
         ks.append(k)
         vs.append(v)
-    return psum(parts), ks, vs
+    return combine_heads(cfg, lps, parts), ks, vs
+
+
+def replicated(cfg: ArchConfig, lps: Sequence[Params]) -> bool:
+    """Whether the shards' attention trees ``lps`` each hold every query
+    head (the heads do not split over them: ``sharding.heads_split``)."""
+    return len(lps) > 1 and lps[0]["wq"].shape[1] == cfg.num_heads
+
+
+def combine_heads(cfg: ArchConfig, lps: Sequence[Params],
+                  parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The attention block's output from its shards' partials: their sum
+    on shard 0, or shard 0's own where every shard computed the whole
+    block (:func:`replicated`)."""
+    return parts[0] if replicated(cfg, lps) else psum(parts, AXES)
 
 
 def ffn(cfg: ArchConfig, lps: Sequence[Params], xs: Sequence[torch.Tensor]
@@ -78,7 +98,8 @@ def ffn(cfg: ArchConfig, lps: Sequence[Params], xs: Sequence[torch.Tensor]
         y, aux = moe_apply_sharded(cfg, [lp["moe"] for lp in lps],
                                    [x.reshape(-1, d) for x in xs])
         return y.reshape(x0.shape), aux
-    return (psum([L.mlp_block(cfg, lp["mlp"], x) for lp, x in zip(lps, xs)]),
+    return (psum([L.mlp_block(cfg, lp["mlp"], x) for lp, x in zip(lps, xs)],
+                 AXES),
             x0.new_zeros((), dtype=torch.float32))
 
 
@@ -107,7 +128,8 @@ def gated_rms_norm(ys: Sequence[torch.Tensor], zs: Sequence[torch.Tensor],
     whole row's width, divides it) and copied back, scales each slice,
     rounded once to ``y``'s type."""
     xfs = [y.float() * F.silu(z.float()) for y, z in zip(ys, zs)]
-    var = psum([xf.square().sum(dim=-1, keepdim=True) for xf in xfs]) / n
+    var = psum([xf.square().sum(dim=-1, keepdim=True) for xf in xfs],
+               AXES) / n
     return [(xf * torch.rsqrt(v + eps) * w.float()).to(y.dtype)
             for xf, v, w, y in zip(xfs, broadcast(var, [x.device
                                                        for x in xfs]),
@@ -125,7 +147,7 @@ def mamba(cfg: ArchConfig, lps: Sequence[Params],
     ys = gated_rms_norm([o[0] for o in outs], [o[1] for o in outs],
                         [lp["norm_w"] for lp in lps], cfg.norm_eps,
                         cfg.ssm_d_inner)
-    return psum([y @ lp["out_proj"] for y, lp in zip(ys, lps)])
+    return psum([y @ lp["out_proj"] for y, lp in zip(ys, lps)], AXES)
 
 
 def mamba_layer(cfg: ArchConfig, lps: Sequence[Params], h: torch.Tensor
@@ -161,7 +183,8 @@ def gathered_logits(cfg: ArchConfig, trees: Sequence[Params],
     columns of ``lm_head``, gathered in shard order, then split per
     codebook."""
     hs = broadcast(h, [shard_device(t) for t in trees])
-    out = all_gather([x @ t["lm_head"] for x, t in zip(hs, trees)], dim=-1)
+    out = all_gather([x @ t["lm_head"] for x, t in zip(hs, trees)], dim=-1,
+                     axes=AXES)
     if cfg.num_codebooks > 1:
         out = out.unflatten(-1, (cfg.num_codebooks, cfg.vocab_size))
     return out

@@ -438,20 +438,23 @@ def position_nll(cfg: ArchConfig, p: Params, plan: ParallelPlan, d: int,
     gathered at use: an untied head's vocab columns split over the ranks
     and gathered (:func:`sharded.gathered_logits`), a tied head whole on
     rank 0."""
+    return token_nll(cfg, position_head(cfg, p, plan, d), h, targets,
+                     loss_chunk=loss_chunk)
+
+
+def position_head(cfg: ArchConfig, p: Params, plan: ParallelPlan, d: int
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Data position ``d``'s output head, gathered at use: an untied
+    head's vocab columns split over its tp ranks and the logits gathered
+    (:func:`sharded.gathered_logits`), a tied head whole on rank 0."""
     row = plan.grid[d]
     key = "embed" if cfg.tie_embeddings else "lm_head"
     if len(row) == 1 or cfg.tie_embeddings:
         hp = {key: take(p[key], row[0])}
-
-        def head(x: torch.Tensor) -> torch.Tensor:
-            return lm_head(cfg, hp, x)
-    else:
-        trees = [position_params(cfg, {key: p[key]}, r, len(row), dev)
-                 for r, dev in enumerate(row)]
-
-        def head(x: torch.Tensor) -> torch.Tensor:
-            return sharded.gathered_logits(cfg, trees, x)
-    return token_nll(cfg, head, h, targets, loss_chunk=loss_chunk)
+        return lambda x: lm_head(cfg, hp, x)
+    trees = [position_params(cfg, {key: p[key]}, r, len(row), dev)
+             for r, dev in enumerate(row)]
+    return lambda x: sharded.gathered_logits(cfg, trees, x)
 
 
 def token_loss(cfg: ArchConfig, p: Params, h: torch.Tensor,

@@ -73,7 +73,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import KVBranchManager
 from repro_torch.core.kvtier import KVSnapshot, KVTierStore
 from repro_torch.device import resolve_device
-from repro_torch.distributed.collectives import broadcast, psum
+from repro_torch.distributed.collectives import broadcast
 from repro_torch.distributed.mesh import (
     DeviceMesh,
     ParallelPlan,
@@ -226,7 +226,19 @@ def serve_specs(cfg: ArchConfig, plan: ParallelPlan, params: Any) -> Any:
     specs = serve_param_specs(cfg, plan, params)
     if cfg.num_codebooks > 1 and "lm_head" in specs:
         specs["lm_head"] = (None,) * params["lm_head"].dim()
+    if not kv_split(cfg, plan.tp_size):
+        specs["layers"]["attn"] = {
+            k: (None,) * len(v) for k, v in specs["layers"]["attn"].items()}
     return specs
+
+
+def kv_split(cfg: ArchConfig, tp: int) -> bool:
+    """Whether the engine splits the attention heads and the pools' kv
+    heads over ``tp`` shards: both counts divide ``tp``.  Otherwise every
+    shard holds every head and the whole pools, computes the whole block,
+    and shard 0's output is added once (as the JAX package's ``sanitize``
+    replicates a dim that does not divide)."""
+    return cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0
 
 
 def scale_spec(plan: ParallelPlan) -> Tuple[Any, ...]:
@@ -341,8 +353,10 @@ class ServeEngine:
         self.attn_impl = "fused" if self.fast_path else "ref"
         self.kv_dtype = kv_dtype
         self.quantized = kv_dtype == "int8"
+        # the shards the kv heads split over (1: every shard holds them all)
+        self.kv_tp = self.tp if kv_split(cfg, self.tp) else 1
         self.shards = [
-            _Shard(cfg, dev, tree, cfg.num_kv_heads // self.tp, num_pages,
+            _Shard(cfg, dev, tree, cfg.num_kv_heads // self.kv_tp, num_pages,
                    page_size, self.quantized)
             for dev, tree in zip(self.devices, trees)]
         # sampling noise for decode(greedy=False) without a generator
@@ -413,13 +427,10 @@ class ServeEngine:
         ``sanitize`` replicates a non-dividing dim: fine for an output dim
         (vocab), wrong for a dim the pass sums over, where every shard
         would compute the whole reduction and the sum would multiply it by
-        ``tp``.  Those dims must divide.
+        ``tp``.  Those dims must divide; the attention heads need not
+        (:func:`kv_split`: the block then runs whole on every shard and is
+        added once).
         """
-        if cfg.num_kv_heads % tp or cfg.num_heads % tp:
-            raise ValueError(
-                f"tp={tp} must divide num_kv_heads={cfg.num_kv_heads} "
-                f"and num_heads={cfg.num_heads} (KV pages and attention "
-                "output shard on the head dims)")
         if cfg.is_moe:
             if cfg.num_experts % tp:
                 raise ValueError(
@@ -471,7 +482,13 @@ class ServeEngine:
                                     lp["wo"]))
             ks.append(k)
             vs.append(v)
-        return h + psum(parts), ks, vs
+        return h + self._attn_sum(i, parts), ks, vs
+
+    def _attn_sum(self, i: int, parts: List[torch.Tensor]) -> torch.Tensor:
+        """Layer ``i``'s attention output from the shards' partials
+        (:func:`sharded.combine_heads`)."""
+        return sharded.combine_heads(
+            self.cfg, [sh.layers[i]["attn"] for sh in self.shards], parts)
 
     def _ffn(self, i: int, h: torch.Tensor) -> torch.Tensor:
         """Layer ``i``'s post-attention FFN on the ln2-normed hidden, added
@@ -562,7 +579,7 @@ class ServeEngine:
                                     lens[r] + 1)
                 parts.append(L.attn_out(a.reshape(b, 1, -1, cfg.head_dim),
                                         lp["wo"]))
-            h = self._ffn(i, h + psum(parts))
+            h = self._ffn(i, h + self._attn_sum(i, parts))
         return self._logits(h)[:, 0]
 
     def _chunk_pass(self, bt: torch.Tensor, lengths: torch.Tensor,
@@ -780,7 +797,8 @@ class ServeEngine:
                 return None
             return np.concatenate(
                 [_host(getattr(sh, name)[:, i])
-                 for sh, i in zip(self.shards, idx)], axis=kv_dim)
+                 for sh, i in zip(self.shards[:self.kv_tp], idx)],
+                axis=kv_dim)
 
         snap = KVSnapshot(
             seq_id=seq, length=length, n_pages=len(table), tokens=tokens,
@@ -804,7 +822,7 @@ class ServeEngine:
         snap = self.tier.get(seq)             # ENOENT if never tiered
         pages = self.kv.promote(seq)          # ENOSPC leaves snap stored
         if pages:
-            kvl = self.cfg.num_kv_heads // self.tp
+            kvl = self.cfg.num_kv_heads // self.kv_tp
             arrays = [(snap.k_pages, 3), (snap.v_pages, 3),
                       (snap.k_scales, 2), (snap.v_scales, 2)]
             for r, sh in enumerate(self.shards):
@@ -813,8 +831,9 @@ class ServeEngine:
                 for pool, (arr, kv_dim) in zip(sh.pools(), arrays):
                     if pool is None or arr is None:
                         continue
+                    r0 = (r % self.kv_tp) * kvl
                     part = np.ascontiguousarray(np.take(
-                        arr, range(r * kvl, (r + 1) * kvl), axis=kv_dim))
+                        arr, range(r0, r0 + kvl), axis=kv_dim))
                     pool[:, idx] = torch.from_numpy(part).to(
                         sh.device).view(pool.dtype)
         self.token_domain.seed(seq, snap.tokens)

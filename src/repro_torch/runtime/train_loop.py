@@ -28,11 +28,13 @@ tree on one card.  The optimizer then updates each block where it lies.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch import accounting
 from repro_torch.distributed import blocked
 from repro_torch.distributed.sharding import shard_params
 from repro_torch.models.model import Model
@@ -53,15 +55,18 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(model: Model, optimizer: Optimizer,
-                     generator: torch.Generator, *,
+                     generator: Optional[torch.Generator] = None, *,
+                     device: Any = None,
                      compress: Optional[str] = None) -> TrainState:
     """Random weights from ``generator`` (on its device), a fresh
     optimizer state and step 0.  Over a training plan the parameters are
     stored as blocks (``shard_params``; the whole tree is dropped once
     blocked) and the optimizer state is made from them, block by block,
     then laid out as ``param_shardings`` says for it (the JAX package's
-    placement of the state)."""
-    params = model.init(generator)
+    placement of the state).  With no generator and ``device="meta"``:
+    the state's shapes, types and layout only."""
+    params = model.init(generator, device=device)
+    where = generator.device if generator is not None else device
     plan = model.plan
     if plan.dp_axes:
         params = shard_params(model.cfg, plan, params)
@@ -72,7 +77,7 @@ def init_train_state(model: Model, optimizer: Optimizer,
         params=params,
         opt_state=opt_state,
         ef=ef_init(params) if compress else None,
-        step=torch.zeros((), dtype=torch.int32, device=generator.device),
+        step=torch.zeros((), dtype=torch.int32, device=where),
     )
 
 
@@ -114,7 +119,8 @@ def sharded_value_and_grad(model: Model, params: Any,
                         * batch["tokens"].shape[0], min=1.0)
     acc: Any = None
     parts = []
-    for d in range(n_dp):
+
+    def position(d: int):
         nll, n_d, aux = model.position_loss(tree, batch, d)
         loss_d = nll / count.to(nll.device) + (w / n_dp) * aux
         # one thread runs the backward on every card: a remat'd layer spans
@@ -122,9 +128,20 @@ def sharded_value_and_grad(model: Model, params: Any,
         # checkpointed region would both recompute it
         with torch.autograd.set_multithreading_enabled(False):
             grads = torch.autograd.grad(loss_d, leaves, allow_unused=True)
-        grads = pytree.tree_unflatten(
+        return nll, n_d, aux, pytree.tree_unflatten(
             [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)], spec)
+
+    first = None            # kept only for the dry run's one of each
+    for d, weight in accounting.repeats(n_dp):
+        if weight:
+            with accounting.scaled(weight):
+                out = position(d)
+            first = out if weight > 1 else None
+        else:
+            out = first
+        nll, n_d, aux, grads = out
+        del out
         if acc is None:
             # a copy: the accumulator is this step's own to add into
             acc = lay_out(pytree.tree_map(
@@ -134,10 +151,34 @@ def sharded_value_and_grad(model: Model, params: Any,
             blocked.map_leaves(blocked.add_into, acc, grads)
         del grads
         parts.append((nll.detach(), n_d, aux.detach()))
+    first = None
+    _report_grad_sums(model, params)
     loss, metrics = model.combine(parts)
     grads = blocked.map_leaves(
         lambda a, p: pytree.tree_map(lambda x: x.to(p.dtype), a), acc, params)
     return loss, metrics, grads
+
+
+def _report_grad_sums(model: Model, params: Any) -> None:
+    """The op counter's account of the gradients' sum over the data
+    positions (the adds into the accumulator run on each block's device):
+    in the SPMD program each leaf's gradient is reduce-scattered over the
+    data axes onto its blocks, or all-reduced where the leaf is not split
+    over them, each position receiving its block."""
+    plan = model.plan
+    if not accounting.active() or plan.dp_size == 1:
+        return
+    n = math.prod(plan.mesh.shape.values())
+    for x in blocked.leaves(params):
+        nbytes = x.numel() * (x.blocks[0] if blocked.is_blocked(x)
+                              else x).element_size()
+        split = blocked.is_blocked(x) and any(
+            a in plan.dp_axes for k in range(x.ndim)
+            for a in x.sharding._axes(k))
+        parts = math.prod(x.sharding.parts(x.ndim)) \
+            if blocked.is_blocked(x) else 1
+        accounting.collective("reduce-scatter" if split else "all-reduce",
+                              nbytes / parts, n, plan.dp_axes)
 
 
 def lay_out(tree: Any, shardings: Any) -> Any:
@@ -184,10 +225,18 @@ def build_train_step(
                                  f"accum_steps {accum_steps}")
             mb = {k: v.reshape(accum_steps, b // accum_steps, *v.shape[1:])
                   for k, v in batch.items()}
-            grads, loss = None, 0.0
-            for i in range(accum_steps):
-                l_i, _, g = grad_fn(state.params,
-                                    {k: v[i] for k, v in mb.items()})
+            grads, loss, first = None, 0.0, None
+            for i, weight in accounting.repeats(accum_steps):
+                if weight:
+                    with accounting.scaled(weight):
+                        out = grad_fn(state.params,
+                                      {k: v[i] for k, v in mb.items()})
+                    # kept only for the dry run's one of each
+                    first = out if weight > 1 else None
+                else:
+                    out = first
+                l_i, _, g = out
+                del out
                 # the accumulator is this step's own: add into it
                 grads = (lay_out(pytree.tree_map(lambda x: x.float(), g),
                                  grad_shardings)

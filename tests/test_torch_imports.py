@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports ``jax`` or anything of the JAX package
-``repro`` (``repro_torch`` itself is fine).  Checked on the source, so a
-lazy import inside a function counts too."""
+"""The port stands alone: no module of ``repro_torch``, no torch twin of
+an example (``examples/*_torch.py``) and not ``chip_smoke.py`` imports
+``jax`` or anything of the JAX package ``repro`` (``repro_torch`` itself
+is fine).  Checked on the source, so a lazy import inside a function
+counts too."""
 
 import ast
 from pathlib import Path
@@ -9,8 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 
 
 def forbidden(module: str) -> bool:
@@ -34,6 +35,10 @@ def test_the_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
     assert "src/repro_torch/runtime/serve_loop.py" in names
+    assert {f"examples/{n}_torch.py" for n in (
+        "quickstart", "agentic_serve", "speculative_train",
+        "train_100m")} <= names
+    assert "examples/quickstart.py" not in names
     assert len(names) > 20
 
 
@@ -47,3 +52,8 @@ def test_no_jax_and_no_reference_imports(path):
 def test_the_rule_catches_what_it_should():
     assert forbidden("jax.numpy") and forbidden("repro.obs")
     assert forbidden("repro") and not forbidden("repro_torch.obs")
+    # the JAX examples the twins stand beside would fail the scan
+    for name in ("quickstart", "agentic_serve", "speculative_train",
+                 "train_100m"):
+        assert any(forbidden(m) for m in imported_modules(
+            ROOT / "examples" / f"{name}.py")), name

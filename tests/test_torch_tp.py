@@ -310,9 +310,14 @@ def test_tp_session_sampled_exploration_matches_single_device(setup):
 
 
 def test_tp_engine_rejects_nondividing_mesh(setup):
-    """Heads 6 over kv 3 cannot split 2 ways: both packages name
-    ``num_kv_heads``; a tp that contradicts the mesh, a mesh with device=,
-    a mesh without a tp axis and more shards than visible cards raise."""
+    """Heads 6 over kv 3 cannot split 2 ways: the reference refuses (it
+    names ``num_kv_heads``), the port runs the attention block whole on
+    each shard (its pools whole too) and adds it once, token-identical to
+    one shard, as the reference's ``sanitize`` replicates such leaves in
+    training (ROADMAP §3, uneven head splits); a d_ff the MLP's sum runs
+    over must still divide.  A tp that contradicts the mesh, a mesh with
+    device=, a mesh without a tp axis and more shards than visible cards
+    raise."""
     jcfg = dataclasses.replace(setup[0].cfg, num_heads=6, num_kv_heads=3,
                                head_dim=32)
     pcfg = dataclasses.replace(setup[2].cfg, num_heads=6, num_kv_heads=3,
@@ -321,9 +326,17 @@ def test_tp_engine_rejects_nondividing_mesh(setup):
         jax_serve.ServeEngine._check_tp_divisibility(jcfg, 2)
     model = Model(pcfg)
     params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="num_kv_heads"):
-        ServeEngine(model, params, num_pages=16, page_size=4, tp=2,
-                    device="cpu")
+    tokens = []
+    for tp in (None, 2):
+        eng = ServeEngine(model, params, num_pages=16, page_size=4, tp=tp,
+                          device="cpu")
+        seq = eng.add_request([5, 9, 2, 7])
+        tokens.append([eng.decode([seq], greedy=True) for _ in range(3)])
+    assert tokens[0] == tokens[1] and eng.kv_tp == 1
+    odd = Model(dataclasses.replace(pcfg, d_ff=1023))
+    with pytest.raises(ValueError, match="d_ff"):
+        ServeEngine(odd, odd.init(torch.Generator().manual_seed(0)),
+                    num_pages=16, page_size=4, tp=2, device="cpu")
     _, _, pmodel, pparams = setup
     mesh = serving_mesh(2, ["cpu"] * 2)
     with pytest.raises(ValueError, match="contradicts"):
