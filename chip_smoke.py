@@ -164,7 +164,17 @@ Phases (any failure exits non-zero; nothing is caught into success):
    full width cut to ``TP_MOE_LAYERS`` layers at tp 2 (64 experts a
    shard) through phase 11's load: the expert-parallel block against one
    device on one input (identical ids, output within ``TOL``), the two
-   shards' ids at the first routing call, step p50 and busy share;
+   shards' ids at the first routing call, step p50 and busy share; (d)
+   ``dbrx-132b`` at full width cut to ``TP_DBRX_LAYERS`` layers at tp 4
+   (12 heads over 2 kv heads and 4 experts a shard: the shapes its
+   serving over four cards gives K1 and K2), its weights drawn shard by
+   shard (``Model.init(generator, shards=plan)``) and held bit for bit
+   against the whole init's slices, layer 0's MoE block over the 4
+   shards against one device on one input, the engine given the placed
+   shards through phase 11's load, its shards routing the first call's
+   rows alike and as tp 1 does, and, at a capacity that drops no row, the
+   first step's logits of the rows routed as tp 1 at every call within
+   ``TP_BF16_REL_RMS`` of tp 1's;
 15. training over a (data 2, model 2) mesh of cuda:0 named four times,
    the state stored as the mesh's blocks (``init_train_state`` over the
    plan): (a) the hard gate in f32 at ``reduced(granite-8b,
@@ -205,14 +215,16 @@ Phases (any failure exits non-zero; nothing is caught into success):
    forward beside the plain forward, the plain recompute backward and, for
    K2, SDPA's forward + backward) and phase 14's per-shard shapes (K1
    and K3 at qwen2-1.5b's tp 2 decode, kv 1 and g 6; K2 at h 6 over kv 1
-   beside SDPA; K1 at qwen3-moe-235b-a22b's tp 2 decode, kv 2 and g 16)
-   and phase 15's per-position shape (K2 at b 2 × s 2048, h 6 over kv 1:
+   beside SDPA; K1 at qwen3-moe-235b-a22b's tp 2 decode, kv 2 and g 16;
+   dbrx-132b's tp 4 shard: K1 at its decode, kv 2 and g 6, and K2 at h 12
+   over kv 2, s 1024, beside SDPA) and phase 15's per-position shape (K2
+   at b 2 × s 2048, h 6 over kv 1:
    the kernel forward, the plain forward and recompute backward, SDPA's
    forward and forward + backward) and per-model-position shapes (b 1 ×
    s 2048: K4 at mamba2's H 40 and zamba2's H 56, N 64; K2 at zamba2's
    shared block, h 16 over kv 16 at hd 112, beside SDPA); then the
    ``{"kernels": [...]}`` line (K1-K4, launches summed over the main
-   paths and phases 11, 12, 13, 15 and 16, then the per-shard rows with
+   paths and phases 11, 12, 13, 15, 16 and 17, then the per-shard rows with
    phase 14's launches and the per-position and per-model-position rows
    with phase 15's), the card line and the final ``{"ok": true, ...}``
    line;
@@ -228,7 +240,17 @@ Phases (any failure exits non-zero; nothing is caught into success):
    one card (qwen2-1.5b ``decode_32k`` at b 16, ``prefill_32k`` at b 1,
    mamba2-2.7b ``prefill_32k`` at b 1): the top kernels, the busy share,
    the step ms and the roofline share (the op counter's larger term over
-   the step, at most 1.05).
+   the step, at most 1.05);
+17. (run after 16, before 10) serving over a plan (``Model(plan=).prefill``
+   and ``decode_step``: the cache as blocks, the decode attention's
+   partial softmax states merged across model positions), every position
+   on cuda:0: the hard gate in f32 at reduced widths (a dense and an SSM
+   config over (data 2, model 2), the card against the CPU: identical
+   greedy tokens, logits within ``PLAN_F32_TOL``), then ``qwen2-1.5b`` at
+   full width and depth over (data 2, model 2) and ``mamba2-2.7b`` at full
+   width, cut in depth, over (data 1, model 2), bf16, b 4 × s 512 and 16
+   greedy steps against one device's ``Model``: the prefill's logits
+   within ``PLAN_BF16_REL_RMS``, K2's (K4's) launches equal to its calls.
 
 Every path's kernel launch counters are zeroed just before it runs and
 read just after; a kernel of the path that never launched fails the run.
@@ -709,7 +731,8 @@ def serve_dense(model, params, *, attn_impl: str, steps: int,
     counters, the tracer must see every one of those launches run on the
     card (a window that lost events is traced again), and no split combine
     kernel may run.  With ``tp`` the engine runs ``tp`` shards on
-    cuda:0 (phase 14), each layer's walk once per shard."""
+    cuda:0 (phase 14), each layer's walk once per shard; ``params`` is the
+    whole tree or one tree per shard already placed there."""
     from repro_torch.runtime import ServeEngine
 
     cfg = model.cfg
@@ -3180,6 +3203,19 @@ TP_BF16_REL_RMS = 2 ** -5
 TP_DRAFTS = [[1, 2, 3, 4], [4, 3, 2, 1], [7, 7, 7, 7], [9, 8, 7, 6]]
 #: phase 14 (c): qwen3-moe-235b-a22b cut to this many of its 94 layers
 TP_MOE_LAYERS = 6
+#: phase 14 (d): dbrx-132b cut to this many of its 40 layers (28.5 GB in
+#: bf16: the whole tree and its shards fit one card together)
+TP_DBRX_LAYERS = 4
+#: the share of the first routing call's rows tp 4 must route as tp 1: the
+#: router's input differs by the f32 order of the attention partials' sum
+#: (rounded once), so a row flips only where two experts' scores tie
+#: within it; bf16 partials summed in bf16 flipped 4% of them on an H100
+#: (``tools/tp_partials.py``)
+TP_ROUTED_AS_TP1 = 0.99
+#: phase 14 (d)'s gate on the first step's logits reads the rows routed as
+#: tp 1 routes them at every routing call of the step, at a capacity that
+#: drops no row (:func:`no_drop`): at least this share of the batch
+TP_ROWS_ALIKE = 0.5
 
 
 @contextlib.contextmanager
@@ -3305,16 +3341,17 @@ def tp_parity() -> None:
             fail(f"phase 14 MoE: {label} differs from tp 1 on the card")
 
 
-def first_step_logits(model, params, seed: int) -> torch.Tensor:
-    """tp 1's first fused decode step of phase 3's load (the logits of its
-    32 branches), for phase 14 (b) to hold tp 2's against."""
+def first_step_logits(model, params, seed: int,
+                      lens=DENSE_PROMPTS) -> torch.Tensor:
+    """tp 1's first fused decode step of phase 3's load (phase 11's with
+    ``lens=FAMILY_PROMPTS``; the logits of its branches), for phase 14 (b)
+    and (d) to hold tp 2's and tp 4's against."""
     from repro_torch.runtime import ServeEngine
 
     eng = ServeEngine(model, params, page_size=16, num_pages=2048,
                       max_pages_per_seq=128, prefix_cache=True,
                       device="cuda:0")
-    prompts = dense_prompts(model.cfg, DENSE_PROMPTS,
-                            np.random.default_rng(seed))
+    prompts = dense_prompts(model.cfg, lens, np.random.default_rng(seed))
     roots = [eng.add_request(p) for p in prompts]
     batch = [b for r in roots for b in eng.fork(r, 4)]
     with pass_logits("_fused_decode_step", limit=1) as seen:
@@ -3322,6 +3359,50 @@ def first_step_logits(model, params, seed: int) -> torch.Tensor:
     for r in roots:
         eng.release(r)
     return seen[0]
+
+
+def no_drop(cfg):
+    """``cfg`` at the capacity factor ``E/K``: ``C = n`` slots an expert,
+    so no expert drops a row (a row takes an expert once).  At the
+    config's factor a decode step's rows share an expert's few slots, and
+    one row routed apart moves which of the others are dropped."""
+    return dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
+
+
+def first_step_routed(model, params, seed: int, lens, **engine):
+    """:func:`first_step_logits` through an engine made with ``engine``
+    (``tp=4, device="cuda:0"``: placed shards): the first fused step's
+    logits and the expert ids of every routing call inside that step (at
+    tp > 1 one call a shard, in shard order)."""
+    from repro_torch.runtime import ServeEngine
+
+    eng = ServeEngine(model, params, page_size=16, num_pages=2048,
+                      max_pages_per_seq=128, prefix_cache=True,
+                      **({"device": "cuda:0"} | engine))
+    prompts = dense_prompts(model.cfg, lens, np.random.default_rng(seed))
+    roots = [eng.add_request(p) for p in prompts]
+    batch = [b for r in roots for b in eng.fork(r, 4)]
+    with pass_logits("_fused_decode_step", limit=1) as seen, \
+            routed_experts() as ids:
+        eng.decode(batch)
+    for r in roots:
+        eng.release(r)
+    return seen[0], ids
+
+
+def rows_routed_alike(calls, one_calls, shards: int) -> list:
+    """For each row of a step, whether its expert ids equal tp 1's
+    (``one_calls``, one call a layer) at every routing call; ``calls``
+    holds ``shards`` calls a layer, which must agree."""
+    layers = [calls[i:i + shards] for i in range(0, len(calls), shards)]
+    if len(layers) != len(one_calls) or any(
+            c != layer[0] for layer in layers for c in layer):
+        fail(f"a step's {len(calls)} routing calls over {shards} shards "
+             f"are not {len(one_calls)} layers' calls routed alike")
+    return [all(layer[0][r] == one[r] for layer, one in zip(layers,
+                                                           one_calls))
+            for r in range(len(one_calls[0]))]
 
 
 def phase_tp(seed: int = 0) -> dict:
@@ -3406,15 +3487,143 @@ def phase_tp(seed: int = 0) -> dict:
     out[name] = {"fused": res}
     del params
     torch.cuda.empty_cache()
+    out["dbrx-132b"] = {"fused": tp4_dbrx(seed)}
     return out
 
 
-def ep_gate(cfg, params, prompt) -> None:
-    """Phase 14 (c)'s hard gate on the expert-parallel branch at full
-    width: layer 0's MoE block on the first prompt's normed embeddings,
-    ``moe_block`` over a 2-way mesh on cuda:0 (64 experts a shard) against
-    one device, on the same input: identical expert ids at every routing
-    call (each shard routes every row), the output within ``TOL``."""
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tp4_dbrx(seed: int = 0) -> dict:
+    """Phase 14 (d): dbrx-132b at full width, cut to ``TP_DBRX_LAYERS``
+    layers, at tp 4 with every shard on cuda:0 (12 heads over 2 kv heads
+    and 4 experts a shard: the shapes its serving over four cards gives K1
+    and K2), its weights drawn shard by shard (``Model.init(generator,
+    shards=plan)``): they must equal the whole init's slices bit for bit.
+    Layer 0's MoE block over the 4 shards must be one device's on one
+    input (:func:`ep_gate`).  Then phase 11's load through the engine
+    given the placed shards: the four shards route the first call's rows
+    alike, and at least ``TP_ROUTED_AS_TP1`` of them as tp 1 does.  The
+    first step's logits are gated at a capacity that drops no row
+    (:func:`no_drop`): the rows routed as tp 1 routes them at every call
+    of the step (at least ``TP_ROWS_ALIKE`` of them) within
+    ``TP_BF16_REL_RMS`` of tp 1's.  At the config's capacity they are
+    printed, not gated: at b 16 each expert keeps 5 slots, so one row
+    routed apart in a layer moves which rows the later layers drop
+    (relative RMS 0.013-0.12 over three seeds at 4 layers on an H100:
+    ``tools/tp_partials.py``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import serving_mesh, serving_plan
+    from repro_torch.distributed.sharding import serve_specs, shard_leaf
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config("dbrx-132b"),
+                              num_layers=TP_DBRX_LAYERS)
+    model = Model(cfg)
+    card = card_line()
+    whole = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    with routed_experts(limit=1) as ids1:
+        one = first_step_logits(model, whole, seed, FAMILY_PROMPTS)
+    loose = Model(no_drop(cfg))
+    one_open, one_calls = first_step_routed(loose, whole, seed,
+                                            FAMILY_PROMPTS)
+    ep_gate(cfg, whole, dense_prompts(cfg, FAMILY_PROMPTS,
+                                      np.random.default_rng(seed))[0],
+            shards=4)
+    plan = serving_plan(serving_mesh(4, ["cuda:0"] * 4))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shards = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        shards=plan)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated() - before
+    stored = torch.cuda.memory_allocated() - before
+    specs = serve_specs(cfg, plan, whole)
+    unequal = [path for rank, tree in enumerate(shards)
+               for path, x in _paths(tree)
+               if not torch.equal(x, shard_leaf(
+                   _at(whole, path), _at(specs, path), "tp", rank, 4,
+                   x.device))]
+    whole_gb = sum(x.nbytes for _, x in _paths(whole)) / 1e9
+    log(f"dbrx-132b ({TP_DBRX_LAYERS} of 40 layers) drawn shard by shard "
+        f"at tp 4 in {init_s:.1f} s: {stored / 1e9:.2f} GB stored for a "
+        f"{whole_gb:.2f} GB tree, the draw's peak {draw_peak / 1e9:.2f} GB "
+        f"above it; leaves unequal to the whole init's slices: "
+        f"{unequal or 'none'}")
+    if unequal:
+        fail("phase 14 (d): the shard-drawn weights are not the whole "
+             "init's slices")
+    del whole
+    torch.cuda.empty_cache()
+    with routed_experts(limit=4) as ids4, \
+            pass_logits("_fused_decode_step", limit=1) as seen:
+        res = serve_dense(model, shards, attn_impl="auto", steps=16,
+                          lens=FAMILY_PROMPTS, seed=seed, tp=4)
+    four = seen[0]
+    rel = ((four - one).square().mean().sqrt()
+           / one.square().mean().sqrt()).item()
+    agree = (four.argmax(-1) == one.argmax(-1)).float().mean().item()
+    same = sum(a == b for a, b in zip(ids4[0], ids1[0])) / len(ids1[0])
+    log(f"dbrx-132b ({TP_DBRX_LAYERS} layers) bf16 first step at tp 4 vs tp "
+        f"1 (b=16): relative RMS error {rel:.3g}, greedy tokens agree on "
+        f"{agree:.3f} of rows; the first routing call ({len(ids1[0])} rows "
+        f"x {cfg.experts_per_token}): the four shards alike="
+        f"{all(x == ids4[0] for x in ids4)}, rows as tp 1 {same:.4f} (gate "
+        f"{TP_ROUTED_AS_TP1}) ({card})")
+    if same < TP_ROUTED_AS_TP1 or any(x != ids4[0] for x in ids4):
+        fail("phase 14 (d): tp 4 routed the first call's rows apart from tp "
+             "1, or its shards routed them apart from each other")
+    four_open, four_calls = first_step_routed(loose, shards, seed,
+                                              FAMILY_PROMPTS, tp=4)
+    alike = rows_routed_alike(four_calls, one_calls, 4)
+    rows = [r for r, a in enumerate(alike) if a]
+    rel_alike = rel_rms(four_open[rows], one_open[rows]) if rows else \
+        float("inf")
+    rel_open = rel_rms(four_open, one_open)
+    log(f"dbrx-132b ({TP_DBRX_LAYERS} layers) at capacity factor "
+        f"{loose.cfg.moe_capacity_factor:g} (no row dropped), first step at "
+        f"tp 4 vs tp 1: {len(rows)} of {len(alike)} rows routed alike at "
+        f"all {len(one_calls)} routing calls (gate {TP_ROWS_ALIKE:g} of "
+        f"them), their relative RMS error {rel_alike:.3g} (gate "
+        f"{TP_BF16_REL_RMS:.3g}); every row {rel_open:.3g} ({card})")
+    if not (len(rows) >= TP_ROWS_ALIKE * len(alike)
+            and rel_alike <= TP_BF16_REL_RMS):
+        fail("phase 14 (d): tp 4's first-step logits are not tp 1's within "
+             "bf16 tolerance on the rows routed alike, at a capacity that "
+             "drops no row")
+    res.update(layers=TP_DBRX_LAYERS, first_step_rel_rms=rel,
+               first_step_argmax_agree=agree, first_call_rows_as_tp1=same,
+               no_drop_rows_alike=len(rows),
+               no_drop_alike_rel_rms=rel_alike,
+               no_drop_rel_rms=rel_open,
+               shard_draw_s=round(init_s, 1),
+               shard_draw_peak_gb=round(draw_peak / 1e9, 2))
+    del shards
+    torch.cuda.empty_cache()
+    return res
+
+
+def ep_gate(cfg, params, prompt, shards: int = 2) -> None:
+    """Phase 14 (c)'s and (d)'s hard gate on the expert-parallel branch at
+    full width: layer 0's MoE block on the first prompt's normed
+    embeddings, ``moe_block`` over a ``shards``-way mesh on cuda:0
+    (qwen3-moe's 64 experts a shard at 2, dbrx's 4 at 4) against one
+    device, on the same input: identical expert ids at every routing call
+    (each shard routes every row), the output within ``TOL``."""
     from repro_torch.distributed import serving_mesh
     from repro_torch.models import layers as L
     from repro_torch.models import moe
@@ -3428,26 +3637,27 @@ def ep_gate(cfg, params, prompt) -> None:
         one, _ = moe.moe_block(cfg, lp["moe"], x)
     with routed_experts() as ep_ids:
         ep, _ = moe.moe_block(cfg, lp["moe"], x, tp_axis="tp",
-                              mesh=serving_mesh(2, ["cuda:0"] * 2))
+                              mesh=serving_mesh(shards, ["cuda:0"] * shards))
     c = compare(ep, one)
-    routed = ep_ids == one_ids * 2
+    routed = ep_ids == one_ids * shards
     log(f"{cfg.name} layer 0 MoE ({x.shape[1]} rows, E {cfg.num_experts}, "
-        f"top {cfg.experts_per_token}, bf16): expert-parallel over 2 shards "
-        f"vs one device: expert ids identical={routed} ({len(ep_ids)} "
+        f"top {cfg.experts_per_token}, bf16): expert-parallel over {shards} "
+        f"shards vs one device: expert ids identical={routed} ({len(ep_ids)} "
         f"routing calls against {len(one_ids)}), output "
         f"{tol_text(c, torch.bfloat16)}")
     if not (routed and c["ok"]):
-        fail(f"phase 14 (c): the expert-parallel MoE block differs from one "
-             f"device's")
+        fail(f"phase 14: {cfg.name}'s expert-parallel MoE block over "
+             f"{shards} shards differs from one device's")
 
 
 def tp_timing(gen, timer, tp: dict) -> list:
     """Phase 10's rows at phase 14's per-shard shapes (bf16, page 16),
     each kernel held against its plain version first: K1 at qwen2-1.5b's
     tp 2 decode (b=32, kv 1, g 6), K3 at its ``"ref"`` decode, K2 at its
-    prefill (h 6 over kv 1, s 1023) beside SDPA, and K1 at
-    qwen3-moe-235b-a22b's tp 2 decode (kv 2, g 16).  Launches: phase
-    14's."""
+    prefill (h 6 over kv 1, s 1023) beside SDPA, K1 at
+    qwen3-moe-235b-a22b's tp 2 decode (kv 2, g 16), and dbrx-132b's tp 4
+    shapes: K1 at its decode (b=16, kv 2, g 6) and K2 at its longest
+    prompt (h 12 over kv 2, s 1024) beside SDPA.  Launches: phase 14's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -3465,8 +3675,10 @@ def tp_timing(gen, timer, tp: dict) -> list:
             ("K1 qwen2-1.5b tp 2 decode", "qwen2-1.5b", "fused", 1, 6),
             ("K3 qwen2-1.5b tp 2 decode", "qwen2-1.5b", "ref", 1, 6),
             ("K1 qwen3-moe-235b-a22b tp 2 decode", "qwen3-moe-235b-a22b",
-             "fused", 2, 16)):
+             "fused", 2, 16),
+            ("K1 dbrx-132b tp 4 decode", "dbrx-132b", "fused", 2, 6)):
         res = tp[name][path]
+        width = 4 if name == "dbrx-132b" else 2
         lengths = res["decode_lengths"]
         case = paged_case(gen, b=len(lengths), t=1, kv=kv, g=g, hd=128,
                           page=16, lengths=lengths, dtype=bf16)
@@ -3492,36 +3704,42 @@ def tp_timing(gen, timer, tp: dict) -> list:
             f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
             f"{launches} launches in phase 14")
         rows.append({
-            "name": f"{kernel} (tp 2 shard: {name}, kv {kv}, g {g})",
+            "name": f"{kernel} (tp {width} shard: {name}, kv {kv}, g {g})",
             "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/paged_attention/{replaces}",
             "launches": launches, "max_abs_err": c["max_abs_err"],
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": None})
-    q, k, v = flash_case(gen, s=1023, h=6, kv=1)
-    c = compare(flash_attention(q, k, v), flash_attention_ref(q, k, v))
-    if not c["ok"]:
-        fail(f"K2 at qwen2-1.5b's tp 2 shard: {tol_text(c, bf16)}")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = timer(lambda: flash_attention(q, k, v))
-    plain = timer(lambda: flash_attention_ref(q, k, v), 5)
-    lib = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    bnd, by = bound_ms(*flash_cost(q, k), bf16)
-    launches = sum(tp[n][p]["launches"]["flash_attention"]
-                   for n in tp for p in tp[n])
-    log(f"K2 qwen2-1.5b tp 2 shard h=6 kv=1 s=1023: {tol_text(c, bf16)}; "
-        f"kernel {ms:.4f} ms, sdpa {lib:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {bnd:.4f} ms ({by}), {launches} launches in phase 14")
-    rows.append({
-        "name": "flash_attention (tp 2 shard: qwen2-1.5b, h 6, kv 1)",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
-        "launches": launches, "max_abs_err": c["max_abs_err"], "ms": ms,
-        "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-        "library_ms": lib})
+    # K2 at qwen2-1.5b's tp 2 shard (phase 14's tp 2 launches) and at
+    # dbrx-132b's tp 4 shard, its longest prompt (14 (d)'s)
+    for label, s, h, kv, names in (
+            ("tp 2 shard: qwen2-1.5b", 1023, 6, 1,
+             ("qwen2-1.5b", "qwen3-moe-235b-a22b")),
+            ("tp 4 shard: dbrx-132b", 1024, 12, 2, ("dbrx-132b",))):
+        q, k, v = flash_case(gen, s=s, h=h, kv=kv)
+        c = compare(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+        if not c["ok"]:
+            fail(f"K2 at the {label}: {tol_text(c, bf16)}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = timer(lambda: flash_attention(q, k, v))
+        plain = timer(lambda: flash_attention_ref(q, k, v), 5)
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        bnd, by = bound_ms(*flash_cost(q, k), bf16)
+        launches = sum(tp[n][p]["launches"]["flash_attention"]
+                       for n in names for p in tp[n])
+        log(f"K2 {label} h={h} kv={kv} s={s}: {tol_text(c, bf16)}; "
+            f"kernel {ms:.4f} ms, sdpa {lib:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}), {launches} launches in phase 14")
+        rows.append({
+            "name": f"flash_attention ({label}, h {h}, kv {kv})",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+            "launches": launches, "max_abs_err": c["max_abs_err"],
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib})
     return rows
 
 
@@ -4026,7 +4244,8 @@ def forced_splits(n: int):
 
 def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
                  explore: dict, door: dict, families: dict,
-                 train: dict, tp: dict, dist: dict, ex: dict) -> list:
+                 train: dict, tp: dict, dist: dict, ex: dict,
+                 plan: dict) -> list:
     """Kernel rows: K1 and K2 at the fused dense path's shapes, K3 at path
     B's, K4 at path A's; K1's and K2's launches are the fused dense
     path's, the public API phase's, the front door's and phases 11 and
@@ -4143,7 +4362,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         + family_launches(families, "flash_attention")
         + train["qwen2-1.5b"]["launches"]["flash_attention"]
         + dist["qwen2-1.5b"]["launches"]["flash_attention"]
-        + phase16_launches(ex, "flash_attention"),
+        + phase16_launches(ex, "flash_attention")
+        + plan["qwen2-1.5b"]["launches"]["flash_attention"],
         "max_abs_err": f["max_abs_err"], "ms": f["ms"],
         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
@@ -4211,7 +4431,8 @@ def phase_timing(gen, main: dict, legacy: dict, ssm: dict,
         + family_launches(families, "ssd_scan")
         + train["mamba2-2.7b"]["launches"]["ssd_scan"]
         + dist["mamba2-2.7b"]["launches"]["ssd_scan"]
-        + phase16_launches(ex, "ssd_scan"),
+        + phase16_launches(ex, "ssd_scan")
+        + plan["mamba2-2.7b"]["launches"]["ssd_scan"],
         "max_abs_err": d["max_abs_err"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": None,
@@ -4490,6 +4711,145 @@ def phase16_launches(ex: dict, name: str) -> int:
     return n + sum(c["launches"].get(name, 0) for c in ex["cells"].values())
 
 
+# ---------------------------------------------------------------------------
+# phase 17: serving over a plan, every mesh position on the card
+# ---------------------------------------------------------------------------
+
+#: phase 17's bf16 runs: (config, (data, model) positions of cuda:0, layers
+#: kept: None for the full depth), the batch, prompt length and steps
+PLAN_RUNS = (("qwen2-1.5b", (2, 2), None), ("mamba2-2.7b", (1, 2), 16))
+PLAN_B, PLAN_S, PLAN_STEPS = 4, 512, 16
+#: bf16 logits over the mesh against one device: the model positions'
+#: partial sums rounded apart, as ``TP_BF16_REL_RMS``
+PLAN_BF16_REL_RMS = 2 ** -5
+#: f32 over the mesh, card (kernels) against CPU (plain versions)
+PLAN_F32_TOL = 1e-4
+
+
+def plan_run(cfg, params, shape, tokens: torch.Tensor, steps: int,
+             device: str = "cuda:0") -> dict:
+    """``Model(cfg, plan=)`` over a (data, model) mesh of ``shape`` with
+    every position on ``device`` (one device's ``Model`` for ``shape``
+    None): the prefill's logits, then ``steps`` greedy ``decode_step``s;
+    every logits on the host in f32 and the greedy tokens."""
+    from repro_torch.distributed.mesh import DeviceMesh, plan_from_mesh
+    from repro_torch.models import Model
+
+    if shape is None:
+        model = Model(cfg)
+    else:
+        devs = np.empty(shape, dtype=object)
+        devs[...] = device
+        model = Model(cfg, plan=plan_from_mesh(
+            DeviceMesh(devs, ("data", "model"))))
+    b, s = tokens.shape
+    logits, cache = model.prefill(params, tokens, max_len=s + steps)
+    out = {"logits": [logits.float().cpu()], "tokens": []}
+    for i in range(steps):
+        tok = logits[:, -1].argmax(-1)
+        out["tokens"].append(tok.tolist())
+        pos = torch.full((b,), s + i, device=tokens.device)
+        logits, cache = model.decode_step(params, cache, tok[:, None], pos)
+        out["logits"].append(logits.float().cpu())
+    return out
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).square().mean().sqrt()
+            / want.square().mean().sqrt()).item()
+
+
+def plan_f32_gate() -> None:
+    """Phase 17's hard gate in f32: a reduced dense config
+    (``reduced(granite-8b, d_model=128)``: 4 heads over 1 kv head, hd 32)
+    and a reduced SSM config (:func:`ssm_gate_config`: mamba2 at the scan
+    kernel's widths) over (data 2, model 2), cuda:0 (the kernels) against
+    the CPU (their plain versions): identical greedy tokens, every logits
+    within ``PLAN_F32_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for cfg in (dataclasses.replace(reduced(get_config("granite-8b"),
+                                            d_model=128), dtype="float32"),
+                ssm_gate_config("mamba2-2.7b")):
+        params = Model(cfg).init(torch.Generator().manual_seed(0))
+        tokens = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (4, 64)))
+        runs = {dev: plan_run(cfg, _to(params, dev), (2, 2),
+                              tokens.to(dev), 4, device=dev)
+                for dev in ("cuda:0", "cpu")}
+        card, cpu = runs["cuda:0"], runs["cpu"]
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(card["logits"], cpu["logits"]))
+        same = card["tokens"] == cpu["tokens"]
+        log(f"{cfg.name} reduced (d {cfg.d_model}) f32 over (data 2, model "
+            f"2): card vs CPU greedy tokens identical={same}, logits max "
+            f"|diff| {err:.3g} (tol {PLAN_F32_TOL})")
+        if not (same and err <= PLAN_F32_TOL):
+            fail(f"phase 17: {cfg.name}'s serving over a plan differs "
+                 "between the card and the CPU")
+
+
+def phase_plan_serve(seed: int = 0) -> dict:
+    """Phase 17: serving over a plan (``Model(plan=).prefill`` and
+    ``decode_step``) with every mesh position on cuda:0: the f32 gate
+    (:func:`plan_f32_gate`), then each of ``PLAN_RUNS`` in bf16 at full
+    width (qwen2-1.5b at full depth over (data 2, model 2); mamba2-2.7b cut
+    in depth over (data 1, model 2)): b ``PLAN_B`` × s ``PLAN_S``, then
+    ``PLAN_STEPS`` greedy steps, against one device's ``Model`` on the card:
+    the prefill's logits within ``PLAN_BF16_REL_RMS``, the greedy tokens'
+    agreement printed, K2's (K4's) launches equal to its calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    log("== phase 17: serving over a plan, every position on cuda:0")
+    card = card_line()
+    plan_f32_gate()
+    out = {}
+    for name, shape, layers in PLAN_RUNS:
+        cfg = get_config(name)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        params = Model(cfg).init(
+            torch.Generator(device="cuda").manual_seed(seed))
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (PLAN_B, PLAN_S))).to("cuda")
+        zero_launches()
+        with counted_train_calls() as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = plan_run(cfg, params, shape, tokens, PLAN_STEPS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items()
+                    if k in ("flash_attention", "ssd_scan")}
+        kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+        want = plan_run(cfg, params, None, tokens, PLAN_STEPS)
+        rel = rel_rms(got["logits"][0], want["logits"][0])
+        agree = float(np.mean(np.array(got["tokens"])
+                              == np.array(want["tokens"])))
+        finite = all(bool(torch.isfinite(x).all()) for x in got["logits"])
+        log(f"{name} ({cfg.num_layers} layers) bf16 over (data {shape[0]}, "
+            f"model {shape[1]}) of cuda:0, b {PLAN_B} x s {PLAN_S} and "
+            f"{PLAN_STEPS} steps in {secs:.1f} s: prefill logits vs one "
+            f"device relative RMS {rel:.3g} (gate {PLAN_BF16_REL_RMS:.3g}), "
+            f"greedy tokens agree on {agree:.3f}; launches {launches} for "
+            f"calls {calls} ({card})")
+        if not (rel <= PLAN_BF16_REL_RMS and finite and calls[kernel]
+                and all(launches[k] == calls[k] for k in launches)):
+            fail(f"phase 17: {name} over the plan: logits {rel:.3g} from one "
+                 f"device's (finite={finite}), or launches {launches} not "
+                 f"its calls {calls}")
+        out[name] = {"layers": cfg.num_layers, "mesh": list(shape),
+                     "seconds": round(secs, 1), "prefill_rel_rms": rel,
+                     "tokens_agree": agree, "launches": launches}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test runs on "
@@ -4547,8 +4907,9 @@ def main() -> None:
     tp = timed("phase 14", phase_tp)
     dist = timed("phase 15", phase_dist, train)
     ex = timed("phase 16", phase_examples)
+    plan = timed("phase 17", phase_plan_serve)
     rows = timed("phase 10", phase_timing, gen, dense, legacy, ssm, explore,
-                 door, families, train, tp, dist, ex)
+                 door, families, train, tp, dist, ex, plan)
     log(f"total {time.perf_counter() - t0:.1f} s after the build; by phase "
         f"{json.dumps(secs)}")
     keys = ("prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",
@@ -4569,6 +4930,8 @@ def main() -> None:
     log("training over a mesh (15, data 2 x model 2 on one card): "
         + json.dumps(dist))
     log("examples and profiled cells (16): " + json.dumps(ex))
+    log("serving over a plan (17, every position on cuda:0): "
+        + json.dumps(plan))
     log("tensor-parallel phase (14, tp 2 on one card): " + json.dumps(
         {name: {path: {k: r[k] for k in (
             "prefill_ms", "decode_step_ms_p50", "decode_tokens_per_s",

@@ -259,6 +259,28 @@ def serving_mesh(tp: int, devices: Optional[Sequence[Any]] = None
     return DeviceMesh(devices, ("tp",))
 
 
+def tp_mesh(tp: int, device: Any = None) -> DeviceMesh:
+    """The serving mesh of ``ServeEngine(tp=, device=)``: every shard on
+    ``device`` where it names one (the CPU, or a card with an index); the
+    first ``tp`` cards for no device or a bare ``cuda``."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return serving_mesh(tp, [device] * tp)
+    return serving_mesh(tp)
+
+
+def same_device(a: Any, b: Any) -> bool:
+    """Whether two devices are one (a bare ``cuda`` is the current
+    card)."""
+    def norm(d: Any) -> torch.device:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return norm(a) == norm(b)
+
+
 def serving_plan(mesh: Optional[DeviceMesh]) -> ParallelPlan:
     """ParallelPlan for a serving mesh (``None`` -> single device).
 

@@ -15,7 +15,10 @@ Paths are the tuples of dict keys from the tree's root to the leaf.
 
 Placement.  For a serving plan :func:`shard_params` holds a parameter tree
 per tp shard, each leaf cut along its tp dimension (a view of the full
-leaf where the shard shares its device, a copy on another device).  For a
+leaf where the shard shares its device, a copy on another device);
+:class:`ShardDraw` cuts an init's leaves the same way as they are drawn,
+so no device holds the whole tree, and :func:`check_shards` holds trees
+placed so against the serving specs.  For a
 training plan it stores each leaf as the blocks :func:`param_shardings`
 names (:class:`~repro_torch.distributed.blocked.Blocked`), each on the
 device of the first position that holds it, and :func:`position_params`
@@ -26,7 +29,7 @@ through back into the blocks.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -35,6 +38,7 @@ from repro_torch.distributed.blocked import block, map_leaves, take
 from repro_torch.distributed.mesh import (
     NamedSharding,
     ParallelPlan,
+    same_device,
     split_range,
 )
 
@@ -358,6 +362,30 @@ def serve_param_specs(cfg: ArchConfig, plan: ParallelPlan,
     return tree_map_with_path(one, params)
 
 
+def kv_split(cfg: ArchConfig, tp: int) -> bool:
+    """Whether the engine splits the attention heads and the pools' kv
+    heads over ``tp`` shards: both counts divide ``tp``.  Otherwise every
+    shard holds every head and the whole pools, computes the whole block,
+    and shard 0's output is added once (as the JAX package's ``sanitize``
+    replicates a dim that does not divide)."""
+    return cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0
+
+
+def serve_specs(cfg: ArchConfig, plan: ParallelPlan, params: Any) -> Any:
+    """The serving engine's parameter spec tree (the training rules
+    retargeted to the serving tp axis).  A multi-codebook head keeps its
+    vocab dim replicated: the ``[b, s, cb, V]`` unflatten in ``lm_head``
+    needs the full codebook-major vocab on every shard.  The attention
+    leaves replicate where :func:`kv_split` does not split the heads."""
+    specs = serve_param_specs(cfg, plan, params)
+    if cfg.num_codebooks > 1 and "lm_head" in specs:
+        specs["lm_head"] = (None,) * params["lm_head"].dim()
+    if not kv_split(cfg, plan.tp_size):
+        specs["layers"]["attn"] = {
+            k: (None,) * len(v) for k, v in specs["layers"]["attn"].items()}
+    return specs
+
+
 def kv_page_spec(plan: ParallelPlan) -> Spec:
     """Spec of the paged KV pools ``[L, n_pages, page, kv, hd]``: pages
     shard on the **kv-head dim**, so a page id means the same on every
@@ -366,17 +394,149 @@ def kv_page_spec(plan: ParallelPlan) -> Spec:
     return (None, None, None, plan.tp_axis, None)
 
 
+def _tp_dim(spec: Spec, tp_axis: str) -> Optional[int]:
+    return spec.index(tp_axis) if tp_axis in spec else None
+
+
+def shard_shape(shape: Tuple[int, ...], spec: Spec, tp_axis: str,
+                tp: int) -> Tuple[int, ...]:
+    """The shape of each of ``tp`` shards of a leaf of ``shape``: its dim
+    along ``tp_axis`` divided by ``tp``."""
+    dim = _tp_dim(spec, tp_axis)
+    if dim is None:
+        return tuple(shape)
+    return tuple(n // tp if i == dim else n for i, n in enumerate(shape))
+
+
+def _narrow(x: torch.Tensor, spec: Spec, tp_axis: str, rank: int,
+            tp: int) -> torch.Tensor:
+    """Shard ``rank`` of ``tp`` of one leaf as a view: the slice along the
+    dim ``spec`` assigns to ``tp_axis`` (the whole leaf if none)."""
+    dim = _tp_dim(spec, tp_axis)
+    if dim is None:
+        return x
+    size = x.shape[dim] // tp
+    return x.narrow(dim, rank * size, size)
+
+
 def shard_leaf(x: torch.Tensor, spec: Spec, tp_axis: str, rank: int,
                tp: int, device: torch.device) -> torch.Tensor:
     """Shard ``rank`` of ``tp`` of one leaf on ``device``: the slice along
     the dim ``spec`` assigns to ``tp_axis`` (the whole leaf if none).  On
     the leaf's own device the slice is a view; elsewhere a copy."""
-    for dim, axis in enumerate(spec):
-        if axis == tp_axis:
-            size = x.shape[dim] // tp
-            x = x.narrow(dim, rank * size, size)
-            break
-    return x.to(device)
+    return _narrow(x, spec, tp_axis, rank, tp).to(device)
+
+
+class WholeDraw:
+    """Where an init puts each leaf it draws by default: whole, on the
+    drawing device (the interface :class:`ShardDraw` shares)."""
+
+    def leaf(self, path: Path, x: torch.Tensor) -> torch.Tensor:
+        """A top-level leaf, as drawn."""
+        return x
+
+    def alloc(self, path: Path, x: torch.Tensor, n: int) -> torch.Tensor:
+        """An empty ``[n, ...]`` stack for layer draws like ``x``."""
+        return x.new_empty((n, *x.shape))
+
+    def fill(self, path: Path, dst: torch.Tensor, i: int,
+             x: torch.Tensor) -> None:
+        """Layer ``i``'s draw ``x`` into the stack."""
+        dst[i].copy_(x)
+
+    def trees(self, tree: Params) -> Params:
+        """The drawn tree, as it is."""
+        return tree
+
+
+#: the default placement of an init: every leaf whole where it is drawn
+WHOLE = WholeDraw()
+
+
+class ShardDraw:
+    """Where an init puts each leaf it draws when no device may hold the
+    whole tree (``Model.init(generator, shards=plan)``): cut into the
+    serving plan's tp shards along ``specs`` (:func:`serve_specs` of the
+    whole tree's shapes), each shard sent to its device at once, so the
+    draw can be dropped before the next one.  A shard on the drawing
+    device is a copy where it is a part of the leaf (a view would keep the
+    whole draw alive).  The values are :func:`shard_params`' of the whole
+    init from the same generator, bit for bit: the draws, their order and
+    the cuts are the same."""
+
+    def __init__(self, plan: ParallelPlan, specs: Any):
+        if plan.dp_axes or not plan.is_distributed:
+            raise ValueError("a shard-by-shard draw takes a serving plan "
+                             "(a tp axis and no data axes)")
+        self.plan = plan
+        self.specs = specs
+
+    def leaf(self, path: Path, x: torch.Tensor) -> List[torch.Tensor]:
+        """A top-level leaf: each shard's part on its device."""
+        spec, plan = _at(self.specs, path), self.plan
+        out = []
+        for rank, dev in enumerate(plan.devices):
+            part = _narrow(x, spec, plan.tp_axis, rank, plan.tp_size)
+            if part.shape != x.shape and same_device(part.device, dev):
+                part = part.clone()
+            out.append(part.to(dev))
+        return out
+
+    def alloc(self, path: Path, x: torch.Tensor, n: int
+              ) -> List[torch.Tensor]:
+        """Each shard's empty ``[n, ...]`` stack for layer draws like
+        ``x`` (``path`` is the stacked leaf's, its spec's first entry the
+        unsharded layer dim)."""
+        spec = _at(self.specs, path)[1:]
+        shape = shard_shape(tuple(x.shape), spec, self.plan.tp_axis,
+                            self.plan.tp_size)
+        return [torch.empty((n, *shape), dtype=x.dtype, device=dev)
+                for dev in self.plan.devices]
+
+    def fill(self, path: Path, dst: List[torch.Tensor], i: int,
+             x: torch.Tensor) -> None:
+        """Layer ``i``'s draw ``x`` into each shard's stack."""
+        spec, plan = _at(self.specs, path)[1:], self.plan
+        for rank, d in enumerate(dst):
+            d[i].copy_(_narrow(x, spec, plan.tp_axis, rank, plan.tp_size))
+
+    def trees(self, tree: Any) -> List[Params]:
+        """The tree of per-shard lists as one tree per shard."""
+        return [tree_map_with_path(lambda path, parts: parts[rank], tree)
+                for rank in range(self.plan.tp_size)]
+
+
+#: how an init places what it draws (:class:`WholeDraw` or
+#: :class:`ShardDraw`)
+Placement = Union[WholeDraw, ShardDraw]
+
+
+def check_shards(plan: ParallelPlan, specs: Any, like: Any,
+                 trees: Sequence[Any]) -> None:
+    """Raise unless ``trees`` is one parameter tree per tp shard of the
+    serving plan, each leaf of the shape ``specs`` cuts from ``like``'s
+    (the whole tree, or its shapes on ``meta``), of its type and on its
+    shard's device."""
+    if len(trees) != plan.tp_size:
+        raise ValueError(f"{len(trees)} shard trees for tp={plan.tp_size}")
+    for rank, (dev, tree) in enumerate(zip(plan.devices, trees)):
+        def one(path: Path, x: Any) -> None:
+            try:
+                got = _at(tree, path)
+            except (KeyError, TypeError):
+                raise ValueError(f"shard {rank} has no leaf "
+                                 f"{'.'.join(path)}") from None
+            want = shard_shape(tuple(x.shape), _at(specs, path),
+                               plan.tp_axis, plan.tp_size)
+            if (not isinstance(got, torch.Tensor)
+                    or tuple(got.shape) != want or got.dtype != x.dtype
+                    or not same_device(got.device, dev)):
+                what = (f"{tuple(got.shape)} {got.dtype} on {got.device}"
+                        if isinstance(got, torch.Tensor) else type(got))
+                raise ValueError(
+                    f"shard {rank}'s {'.'.join(path)} is {what}; the "
+                    f"serving specs want {want} {x.dtype} on {dev}")
+        tree_map_with_path(one, like)
 
 
 def shard_params(cfg: ArchConfig, plan: ParallelPlan, params: Params,

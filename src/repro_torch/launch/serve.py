@@ -30,14 +30,22 @@ address is printed on the ``serving on http://...`` line.
 ``--tp N`` serves through a tensor-parallel engine of ``N`` shards and
 prints the ``serving mesh: tp=N over [...]`` line with the shards'
 devices: on the first ``N`` cards by default, every shard on one device
-with ``--device cpu`` or ``--device cuda:0``.
+with ``--device cpu`` or ``--device cuda:0``.  The weights are drawn shard
+by shard (``Model.init(generator, shards=plan)``), so no device ever holds
+the whole tree: ``dbrx-132b`` (263 GB in bf16) serves over four 80 GB
+cards, about 67 GB of weights a card, and on the cards the ``init peak
+per card`` line follows the mesh line::
+
+    python -m repro_torch.launch.serve --tp 4 --arch dbrx-132b \
+        --requests 2 --tokens 4 --branches 2
 
 A config the paged engine does not serve (``musicgen-medium``'s four
 codebooks, as the JAX engine fails on them, ``mamba2-2.7b`` or the hybrid
 ``zamba2-7b``, which the JAX engine refuses too) exits 2 with the engine's
 refusal.  The MoE configs (``qwen3-moe-235b-a22b``, ``dbrx-132b``) serve
 through the engine like the dense ones; at full depth neither fits one
-80 GB card.
+80 GB card (``dbrx-132b`` fits four at ``--tp 4``; qwen3-moe's 470 GB
+does not).
 """
 
 from __future__ import annotations
@@ -97,6 +105,7 @@ def main(argv=None) -> int:
     from repro_torch.api import BranchSession
     from repro_torch.configs import get_config, reduced
     from repro_torch.device import resolve_device
+    from repro_torch.distributed.mesh import serving_plan, tp_mesh
     from repro_torch.explore_ctx import ExplorationDriver, best_of_n
     from repro_torch.models import Model
     from repro_torch.models.transformer import check_engine_servable
@@ -117,21 +126,33 @@ def main(argv=None) -> int:
             cfg = reduced(cfg)
         cfg = dataclasses.replace(cfg, dtype="float32")
     model = Model(cfg)
-    params = model.init(torch.Generator(
-        device=device or "cuda").manual_seed(0))
+    gen = torch.Generator(device=device or "cuda").manual_seed(0)
     try:
+        if args.tp is None:
+            params, mesh = model.init(gen), None
+        else:
+            # a width the config or the cards refuse, before any draw
+            ServeEngine._check_tp_divisibility(cfg, args.tp)
+            mesh = tp_mesh(args.tp, device)
+            # drawn shard by shard: no device holds the whole tree
+            params = model.init(gen, shards=serving_plan(mesh))
+            device = None
         engine = ServeEngine(model, params, num_pages=args.num_pages,
-                             page_size=8, max_pages_per_seq=64, tp=args.tp,
+                             page_size=8, max_pages_per_seq=64, mesh=mesh,
                              prefix_cache=not args.no_prefix_cache,
                              obs=Observability(trace=args.trace is not None),
                              device=device)
-    except ValueError as e:    # a width the config or the cards refuse
+    except ValueError as e:
         print(f"--tp {args.tp}: {e}", file=sys.stderr)
         return 2
     session = BranchSession(engine, max_batch=args.max_batch, seed=1)
     if session.tp > 1:
         print(f"serving mesh: tp={session.tp} over "
               f"[{', '.join(map(str, engine.devices))}]")
+        if engine.device.type == "cuda":
+            print("init peak per card: " + ", ".join(
+                f"{d} {torch.cuda.max_memory_allocated(d) / 1e9:.2f} GB"
+                for d in dict.fromkeys(engine.devices)))
     if args.serve:
         return _serve_front_door(session, args)
     driver = ExplorationDriver(session)

@@ -191,6 +191,39 @@ def attn_out(a: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return a.reshape(*a.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
 
 
+class _WideProduct(torch.autograd.Function):
+    """``x @ w`` of 2-D bf16 (fp16) operands returned in f32: cuBLAS's f32
+    output (``torch.mm(..., out_dtype=)``, which has no derivative of its
+    own).  The backward is the narrow product's: the output's gradient,
+    rounded to the operands' type, through two products."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.T, x.T @ g
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor,
+                    shards: int) -> torch.Tensor:
+    """``x @ w`` (``x`` ``[..., k]``, ``w`` ``[k, n]``) as one of ``shards``
+    tensor-parallel partials, whose sum the caller rounds once to ``x``'s
+    type: on the card, with more than one shard, bf16 (fp16) operands give
+    the f32 accumulator itself, so the sum rounds once as one device's
+    product does (and the all-reduce moves f32); one shard, f32 operands
+    (the CPU) and shapes on ``meta`` give the product in ``x``'s type."""
+    if not (shards > 1 and x.is_cuda
+            and x.dtype in (torch.bfloat16, torch.float16)):
+        return x @ w
+    y = _WideProduct.apply(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def _attn_chunk(s: int, chunk: int) -> int:
     """Query rows per chunk: ``chunk``, or ``gcd(chunk, s)`` where it does
     not divide ``s``, as the JAX package."""
@@ -361,14 +394,17 @@ def mlp_block(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """swiglu: (silu(x wg) * (x wu)) wd; geglu: (gelu(x wg) * (x wu)) wd
     with gelu's tanh form (``jax.nn.gelu``'s default, not torch's); sqrelu:
     relu(x wu)^2 wd."""
+    return mlp_hidden(cfg, p, x) @ p["wd"]
+
+
+def mlp_hidden(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """:func:`mlp_block` up to ``wd``: the activated ``[..., d_ff]``."""
     act = cfg.mlp_activation
     up = x @ p["wu"]
     if act == "swiglu":
-        h = F.silu(x @ p["wg"]) * up
-    elif act == "geglu":
-        h = F.gelu(x @ p["wg"], approximate="tanh") * up
-    elif act == "sqrelu":
-        h = torch.square(F.relu(up))
-    else:
-        raise ValueError(f"unknown activation {act}")
-    return h @ p["wd"]
+        return F.silu(x @ p["wg"]) * up
+    if act == "geglu":
+        return F.gelu(x @ p["wg"], approximate="tanh") * up
+    if act == "sqrelu":
+        return torch.square(F.relu(up))
+    raise ValueError(f"unknown activation {act}")

@@ -26,10 +26,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.collectives import psum
 from repro_torch.distributed.mesh import SINGLE_DEVICE, ParallelPlan
+from repro_torch.distributed.sharding import ShardDraw, serve_specs
 from repro_torch.models import decode as D
 from repro_torch.models import plan_decode as PD
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import init_generator
+from repro_torch.models.layers import META, init_generator
 
 Params = Dict[str, Any]
 
@@ -39,11 +40,21 @@ init_decode_state = D.init_decode_state
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
-                *, device: Any = None) -> Params:
+                *, device: Any = None, shards: Optional[ParallelPlan] = None
+                ) -> Any:
     """Random weights from a seeded generator, on its device; with no
     generator and ``device="meta"``, the tree's shapes and types only
-    (nothing allocated or drawn: the dry run's ``jax.eval_shape``)."""
-    return T.init_transformer(cfg, init_generator(generator, device))
+    (nothing allocated or drawn: the dry run's ``jax.eval_shape``).  With
+    ``shards`` (a serving plan: ``serving_plan(mesh)``), one tree per tp
+    shard on the plan's devices, each leaf cut by the serving engine's
+    specs as it is drawn: bit for bit ``shard_params`` of the whole init
+    from the same generator, with no device holding the whole tree."""
+    gen = init_generator(generator, device)
+    if shards is None:
+        return T.init_transformer(cfg, gen)
+    like = T.init_transformer(cfg, META)
+    return T.init_transformer(
+        cfg, gen, ShardDraw(shards, serve_specs(cfg, shards, like)))
 
 
 @dataclass
@@ -59,10 +70,13 @@ class Model:
         T.check_servable(self.cfg)
 
     def init(self, generator: Optional[torch.Generator] = None, *,
-             device: Any = None) -> Params:
+             device: Any = None, shards: Optional[ParallelPlan] = None
+             ) -> Any:
         """Random weights from a seeded generator, on its device (shapes
-        only on ``device="meta"``: :func:`init_params`)."""
-        return init_params(self.cfg, generator, device=device)
+        only on ``device="meta"``; one tree per tp shard of a serving plan
+        with ``shards``: :func:`init_params`)."""
+        return init_params(self.cfg, generator, device=device,
+                           shards=shards)
 
     # -- training ---------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]

@@ -176,7 +176,7 @@ def _attn_out(cfg: ArchConfig, pos: _Position, lps: Sequence[Params],
         if pos.tp > 1 and not rep:
             q0, nq = split_range(cfg.num_heads, pos.tp, r)
             o = o[:, :, q0:q0 + nq]
-        parts.append(L.attn_out(o, lp["wo"]))
+        parts.append(sharded.head_partial(o, lp["wo"], len(lps)))
     return sharded.combine_heads(cfg, lps, parts)
 
 
@@ -308,7 +308,7 @@ def _mamba_prefill(cfg: ArchConfig, pos: _Position, lps: Sequence[Params],
                                 cfg.ssm_d_inner)
     _put_state(cfg, pos, cache, i, [o[2] for o in outs],
                [o[3] for o in outs])
-    return psum([y @ lp["out_proj"] for y, lp in zip(ys, lps)], AXES)
+    return sharded.out_proj_sum(ys, lps)
 
 
 # ---------------------------------------------------------------------------
@@ -507,5 +507,4 @@ def _mamba_decode(cfg: ArchConfig, at: _Position, lps: Sequence[Params],
     ys = sharded.gated_rms_norm([o[0] for o in outs], [o[1] for o in outs],
                                 [lp["norm_w"] for lp in lps], cfg.norm_eps,
                                 cfg.ssm_d_inner)
-    return psum([(y @ lp["out_proj"])[:, None] for y, lp in zip(ys, lps)],
-                AXES)
+    return sharded.out_proj_sum(ys, lps)[:, None]

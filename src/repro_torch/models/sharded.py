@@ -9,8 +9,12 @@ residual stream lives on shard 0's device; each sublayer's normed input
 is copied to every shard (:func:`~repro_torch.distributed.collectives.
 broadcast`), each shard computes its partial, and the partials are summed
 on shard 0 in shard order (:func:`~repro_torch.distributed.collectives.
-psum`).  Every op is an ordinary differentiable tensor op, so autograd
-runs the backward through the copies and sums: a leaf replicated over the
+psum`).  On the card, with more than one shard, a bf16 partial stays in
+f32 (the product's accumulator: :func:`layers.partial_product`; the sum
+moves f32) and the sum is rounded once, as one device's product is, so
+the shards' sum differs from one device's by the f32 summation order
+only.  Every op is an ordinary differentiable tensor op, so autograd runs
+the backward through the copies and sums: a leaf replicated over the
 shards (norms, the router) gets the sum of its shards' gradients, and a
 sliced leaf the gradients of its slices.  The counterpart of the JAX
 package's ``shard_map`` bodies and of XLA's partitioning of
@@ -64,11 +68,23 @@ def attention(cfg: ArchConfig, lps: Sequence[Params],
     whole block, and shard 0's output is added once."""
     parts, ks, vs = [], [], []
     for lp, x, pos in zip(lps, xs, positions):
-        a, k, v = L.attention_block_kv(cfg, lp, x, pos, chunk, attn)
-        parts.append(a)
+        q, k, v = L.qkv_project(cfg, lp, x, pos)
+        a = (attn or L.flash_attention)(q, k, v, chunk)
+        parts.append(head_partial(a, lp["wo"], len(lps)))
         ks.append(k)
         vs.append(v)
     return combine_heads(cfg, lps, parts), ks, vs
+
+
+def head_partial(a: torch.Tensor, wo: torch.Tensor,
+                 shards: int) -> torch.Tensor:
+    """A shard's heads ``a`` ``[..., h, hd]`` through its ``wo`` rows: its
+    partial of the attention output, one of ``shards``
+    (:func:`layers.partial_product`: f32 on the card at more than one,
+    rounded once after the sum by :func:`combine_heads`)."""
+    h, hd, d = wo.shape
+    return L.partial_product(a.reshape(*a.shape[:-2], h * hd),
+                             wo.reshape(h * hd, d), shards)
 
 
 def replicated(cfg: ArchConfig, lps: Sequence[Params]) -> bool:
@@ -79,10 +95,12 @@ def replicated(cfg: ArchConfig, lps: Sequence[Params]) -> bool:
 
 def combine_heads(cfg: ArchConfig, lps: Sequence[Params],
                   parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The attention block's output from its shards' partials: their sum
-    on shard 0, or shard 0's own where every shard computed the whole
-    block (:func:`replicated`)."""
-    return parts[0] if replicated(cfg, lps) else psum(parts, AXES)
+    """The attention block's output from its shards' partials
+    (:func:`head_partial`): their sum on shard 0, or shard 0's own where
+    every shard computed the whole block (:func:`replicated`), rounded once
+    to the weights' type."""
+    out = parts[0] if replicated(cfg, lps) else psum(parts, AXES)
+    return out.to(lps[0]["wo"].dtype)
 
 
 def ffn(cfg: ArchConfig, lps: Sequence[Params], xs: Sequence[torch.Tensor]
@@ -98,8 +116,10 @@ def ffn(cfg: ArchConfig, lps: Sequence[Params], xs: Sequence[torch.Tensor]
         y, aux = moe_apply_sharded(cfg, [lp["moe"] for lp in lps],
                                    [x.reshape(-1, d) for x in xs])
         return y.reshape(x0.shape), aux
-    return (psum([L.mlp_block(cfg, lp["mlp"], x) for lp, x in zip(lps, xs)],
-                 AXES),
+    parts = [L.partial_product(L.mlp_hidden(cfg, lp["mlp"], x),
+                               lp["mlp"]["wd"], len(lps))
+             for lp, x in zip(lps, xs)]
+    return (psum(parts, AXES).to(x0.dtype),
             x0.new_zeros((), dtype=torch.float32))
 
 
@@ -147,7 +167,16 @@ def mamba(cfg: ArchConfig, lps: Sequence[Params],
     ys = gated_rms_norm([o[0] for o in outs], [o[1] for o in outs],
                         [lp["norm_w"] for lp in lps], cfg.norm_eps,
                         cfg.ssm_d_inner)
-    return psum([y @ lp["out_proj"] for y, lp in zip(ys, lps)], AXES)
+    return out_proj_sum(ys, lps)
+
+
+def out_proj_sum(ys: Sequence[torch.Tensor], lps: Sequence[Params]
+                 ) -> torch.Tensor:
+    """The Mamba2 block's output: each rank's normed ``y`` through its rows
+    of ``out_proj`` (:func:`layers.partial_product`), summed on rank 0 and
+    rounded once to ``y``'s type."""
+    return psum([L.partial_product(y, lp["out_proj"], len(lps))
+                 for y, lp in zip(ys, lps)], AXES).to(ys[0].dtype)
 
 
 def mamba_layer(cfg: ArchConfig, lps: Sequence[Params], h: torch.Tensor

@@ -40,7 +40,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.blocked import take
 from repro_torch.distributed.collectives import broadcast
 from repro_torch.distributed.mesh import ParallelPlan
-from repro_torch.distributed.sharding import position_params
+from repro_torch.distributed.sharding import (
+    WHOLE,
+    Placement,
+    position_params,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import sharded
 from repro_torch.models.moe import init_moe, moe_block
@@ -106,18 +110,32 @@ def check_engine_servable(cfg: ArchConfig) -> None:
             "BranchStore (the JAX package's engine refuses them too)")
 
 
-def init_transformer(cfg: ArchConfig, gen: torch.Generator) -> Params:
+def init_transformer(cfg: ArchConfig, gen: torch.Generator,
+                     place: Placement = WHOLE) -> Any:
     """Random weights drawn from ``gen`` on its device.  Each stacked
     ``[L, ...]`` leaf is allocated once and filled layer by layer, so the
-    peak is the model plus one layer and one f32 draw."""
+    peak is the model plus one layer and one f32 draw.  ``place`` puts each
+    leaf as it is drawn: whole where drawn (:data:`~repro_torch.
+    distributed.sharding.WHOLE`), or cut into a serving plan's tp shards
+    (:class:`~repro_torch.distributed.sharding.ShardDraw`: one tree per
+    shard, the drawing device holding its own shard plus one layer and one
+    f32 draw)."""
     check_servable(cfg)
     dtype = torch_dtype(cfg)
     dev = gen.device
     d, n, cb = cfg.d_model, cfg.num_layers, cfg.num_codebooks
+
+    def keep(path: Tuple[str, ...], x: Any) -> Any:
+        if isinstance(x, dict):
+            return {k: keep(path + (k,), v) for k, v in x.items()}
+        return place.leaf(path, x)
+
     embed_shape = (cb, cfg.vocab_size, d) if cb > 1 else (cfg.vocab_size, d)
-    p: Params = {"embed": L.dense_init(gen, embed_shape, dtype, fan_in=d)}
+    p: Params = {"embed": keep(("embed",), L.dense_init(
+        gen, embed_shape, dtype, fan_in=d))}
     if cfg.frontend == "vlm_stub":
-        p["frontend_proj"] = L.dense_init(gen, (d, d), dtype)
+        p["frontend_proj"] = keep(("frontend_proj",),
+                                  L.dense_init(gen, (d, d), dtype))
     if cfg.family in SSM_FAMILIES:
         def one() -> Params:
             return {"ln": torch.ones((d,), dtype=dtype, device=dev),
@@ -132,46 +150,48 @@ def init_transformer(cfg: ArchConfig, gen: torch.Generator) -> Params:
             else:
                 lp["mlp"] = L.init_mlp(cfg, gen, dtype)
             return lp
-    p["layers"] = _stacked(n, one)
+    p["layers"] = _stacked(n, one, place)
     if cfg.family == "hybrid":
         # ONE attention + MLP block, its weights shared by every application
-        p["shared"] = {
+        p["shared"] = keep(("shared",), {
             "w_concat": L.dense_init(gen, (2 * d, d), dtype),
             "ln1": torch.ones((d,), dtype=dtype, device=dev),
             "ln2": torch.ones((d,), dtype=dtype, device=dev),
             "attn": L.init_attention(cfg, gen, dtype),
             "mlp": L.init_mlp(cfg, gen, dtype),
-        }
-    p["final_norm"] = torch.ones((d,), dtype=dtype, device=dev)
+        })
+    p["final_norm"] = keep(("final_norm",),
+                           torch.ones((d,), dtype=dtype, device=dev))
     if not cfg.tie_embeddings:
-        p["lm_head"] = L.dense_init(gen, (d, cb * cfg.vocab_size), dtype,
-                                    fan_in=d)
-    return p
+        p["lm_head"] = keep(("lm_head",), L.dense_init(
+            gen, (d, cb * cfg.vocab_size), dtype, fan_in=d))
+    return place.trees(p)
 
 
-def _stacked(n: int, one: Callable[[], Params]) -> Params:
+def _stacked(n: int, one: Callable[[], Params],
+             place: Placement = WHOLE) -> Params:
     """``n`` draws of the layer tree ``one()`` stacked ``[n, ...]``: every
-    leaf is allocated once, and each layer's draw is copied into its slot
-    and dropped before the next is drawn."""
+    leaf is allocated once (where ``place`` puts it), and each layer's
+    draw is copied into its slot and dropped before the next is drawn."""
     first = one()
 
-    def alloc(x: Any) -> Any:
+    def alloc(x: Any, path: Tuple[str, ...]) -> Any:
         if isinstance(x, dict):
-            return {k: alloc(v) for k, v in x.items()}
-        return x.new_empty((n, *x.shape))
+            return {k: alloc(v, path + (k,)) for k, v in x.items()}
+        return place.alloc(path, x, n)
 
-    def fill(dst: Any, i: int, src: Any) -> None:
+    def fill(dst: Any, i: int, src: Any, path: Tuple[str, ...]) -> None:
         if isinstance(dst, dict):
             for k in dst:
-                fill(dst[k], i, src[k])
+                fill(dst[k], i, src[k], path + (k,))
         else:
-            dst[i].copy_(src)
+            place.fill(path, dst, i, src)
 
-    out = alloc(first)
-    fill(out, 0, first)
+    out = alloc(first, ("layers",))
+    fill(out, 0, first, ("layers",))
     del first
     for i in range(1, n):
-        fill(out, i, one())
+        fill(out, i, one(), ("layers",))
     return out
 
 

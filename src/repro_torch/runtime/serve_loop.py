@@ -41,7 +41,11 @@ host, so fork/commit cost does not change with ``tp``.  ``tp=N`` with
 ``device="cpu"`` or a card with an index puts every shard there (the
 tests, and a one-card run); without a device, or with ``"cuda"``, it takes
 the first ``N`` cards and raises when fewer are visible.  Unset, the
-engine is one shard holding the whole model on ``device``.
+engine is one shard holding the whole model on ``device``.  ``params`` is
+the whole tree (cut into the shards here) or a list of one tree per shard
+already on its device (``Model.init(generator, shards=plan)``, for a model
+no one device holds), checked against the serving specs and taken as it
+is.
 
 Attention is :func:`repro_torch.kernels.paged_attention.
 paged_chunk_attention` (fused decode, verify, suffix prefill — on both
@@ -77,10 +81,15 @@ from repro_torch.distributed.collectives import broadcast
 from repro_torch.distributed.mesh import (
     DeviceMesh,
     ParallelPlan,
-    serving_mesh,
     serving_plan,
+    tp_mesh,
 )
-from repro_torch.distributed.sharding import serve_param_specs, shard_params
+from repro_torch.distributed.sharding import (
+    check_shards,
+    kv_split,
+    serve_specs,
+    shard_params,
+)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (
     paged_attention,
@@ -218,46 +227,11 @@ class TokenDomain:
 # the sharded parameters and pools
 # ---------------------------------------------------------------------------
 
-def serve_specs(cfg: ArchConfig, plan: ParallelPlan, params: Any) -> Any:
-    """The engine's parameter spec tree (the training rules retargeted to
-    the serving tp axis).  A multi-codebook head keeps its vocab dim
-    replicated: the ``[b, s, cb, V]`` unflatten in ``lm_head`` needs the
-    full codebook-major vocab on every shard."""
-    specs = serve_param_specs(cfg, plan, params)
-    if cfg.num_codebooks > 1 and "lm_head" in specs:
-        specs["lm_head"] = (None,) * params["lm_head"].dim()
-    if not kv_split(cfg, plan.tp_size):
-        specs["layers"]["attn"] = {
-            k: (None,) * len(v) for k, v in specs["layers"]["attn"].items()}
-    return specs
-
-
-def kv_split(cfg: ArchConfig, tp: int) -> bool:
-    """Whether the engine splits the attention heads and the pools' kv
-    heads over ``tp`` shards: both counts divide ``tp``.  Otherwise every
-    shard holds every head and the whole pools, computes the whole block,
-    and shard 0's output is added once (as the JAX package's ``sanitize``
-    replicates a dim that does not divide)."""
-    return cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0
-
-
 def scale_spec(plan: ParallelPlan) -> Tuple[Any, ...]:
     """Spec of the int8 dequant scales ``[L, n_pages, kv]``: the kv-head
     dim shards exactly as the pools', so each shard's scales stay with its
     pool slice."""
     return (None, None, plan.tp_axis)
-
-
-def _shard_devices(device: Any, tp: int) -> Optional[List[torch.device]]:
-    """The shards' devices for ``tp=`` with ``device=``: every shard on a
-    named device (the CPU, or a card with an index); ``None`` (the first
-    ``tp`` cards) for no device or a bare ``cuda``."""
-    if device is None:
-        return None
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        return None
-    return [device] * tp
 
 
 class _Shard:
@@ -324,7 +298,7 @@ class ServeEngine:
             raise ValueError("name the shards' devices in mesh= or give "
                              "device=, not both")
         if mesh is None and tp is not None:
-            mesh = serving_mesh(tp, _shard_devices(device, tp))
+            mesh = tp_mesh(tp, device)
         self.mesh = mesh
         self.plan = serving_plan(mesh)
         self.tp = self.plan.tp_size
@@ -332,11 +306,21 @@ class ServeEngine:
             raise ValueError(
                 f"tp={tp} contradicts the given mesh's tensor-parallel "
                 f"width {self.tp}; pass one or the other")
+        # a list: one tree per shard, already on its device (taken as it
+        # is, as the JAX engine's device_put takes placed arrays)
+        placed = isinstance(params, (list, tuple))
+        if placed and not self.plan.is_distributed:
+            raise ValueError("a list of shard trees needs tp= or mesh=")
         if self.plan.is_distributed:
             self._check_tp_divisibility(cfg, self.tp)
-            specs = serve_specs(cfg, self.plan, params)
+            like = model.init(device="meta") if placed else params
+            specs = serve_specs(cfg, self.plan, like)
             devices = self.plan.devices
-            trees = shard_params(cfg, self.plan, params, specs)
+            if placed:
+                check_shards(self.plan, specs, like, params)
+                trees = list(params)
+            else:
+                trees = shard_params(cfg, self.plan, params, specs)
             # a vocab-sharded head's logits are gathered on shard 0
             self._gather_logits = self.plan.tp_axis in specs.get(
                 "lm_head", ())
@@ -478,8 +462,9 @@ class ServeEngine:
             a = paged_chunk_attention(qc, k, v, sh.k_pages[i], sh.v_pages[i],
                                       bt[r], lengths[r], page_map[r], ks_i,
                                       vs_i)
-            parts.append(L.attn_out(a.reshape(b, t, -1, cfg.head_dim),
-                                    lp["wo"]))
+            parts.append(sharded.head_partial(
+                a.reshape(b, t, -1, cfg.head_dim), lp["wo"],
+                len(self.shards)))
             ks.append(k)
             vs.append(v)
         return h + self._attn_sum(i, parts), ks, vs
@@ -577,8 +562,9 @@ class ServeEngine:
                 qh = q.reshape(b, kvh, q.shape[2] // kvh, cfg.head_dim)
                 a = paged_attention(qh, sh.k_pages[i], sh.v_pages[i], bt[r],
                                     lens[r] + 1)
-                parts.append(L.attn_out(a.reshape(b, 1, -1, cfg.head_dim),
-                                        lp["wo"]))
+                parts.append(sharded.head_partial(
+                    a.reshape(b, 1, -1, cfg.head_dim), lp["wo"],
+                    len(self.shards)))
             h = self._ffn(i, h + self._attn_sum(i, parts))
         return self._logits(h)[:, 0]
 

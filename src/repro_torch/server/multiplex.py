@@ -290,9 +290,10 @@ class EngineLoop:
             for rec in list(self.registry.live.values()):
                 rec.state = "error"
                 rec.error = f"engine loop crashed: {err!r}"
+                # settled before the terminal event, as in evict()
+                self.registry.complete(rec)
                 self.emit(rec, "error", {"message": rec.error})
                 self._end_stream(rec)
-                self.registry.complete(rec)
 
     def _has_work(self) -> bool:
         return bool(self.driver.live

@@ -769,6 +769,34 @@ def test_tp2_engine_one_shard_a_card(gen, path):
         assert out["cards"] == out["tp1"] == out["cpu"], name
 
 
+def test_partial_product_keeps_the_f32_accumulator(gen):
+    """A bf16 tensor-parallel partial on the card, one of two shards, is
+    the product's f32 accumulator: rounded to bf16 it is the bf16 product
+    (one device's result) within one ulp, it is the f32 product of the
+    bf16 operands within f32 order noise, and its gradients are the bf16
+    product's.  One shard's is the plain bf16 product."""
+    from repro_torch.models.layers import partial_product
+
+    x = torch.randn(96, 1536, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(1536, 768, generator=gen, device="cuda").bfloat16()
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    ws = [w.clone().requires_grad_() for _ in range(2)]
+    wide = partial_product(xs[0][None], ws[0], 2)[0]
+    narrow = xs[1] @ ws[1]
+    assert wide.dtype == torch.float32
+    assert torch.equal(partial_product(x, w, 1), x @ w)
+    exact = x.float() @ w.float()
+    torch.testing.assert_close(wide, exact, rtol=0,
+                               atol=1e-5 * exact.abs().max().item())
+    torch.testing.assert_close(wide.bfloat16().float(), narrow.float(),
+                               **TOL[torch.bfloat16])
+    g = torch.randn(96, 768, generator=gen, device="cuda").bfloat16()
+    wide.backward(g.float())
+    narrow.backward(g)
+    assert torch.equal(xs[0].grad, xs[1].grad)
+    assert torch.equal(ws[0].grad, ws[1].grad)
+
+
 def card_mesh_state(name, devices, seed=0):
     """``name`` at full width and depth in bf16 over ``plan_mesh(devices)``
     (prefer model 2 for the SSM config, 1 for the dense), its state stored

@@ -13,7 +13,12 @@ port's shards all on the CPU (``device="cpu"``: the kernels' plain
 versions), the JAX engine on ``attn_impl="fused_ref"`` (or ``"ref"``).
 Greedy tokens and CoW counters must be identical; step and verify logits
 agree within 1e-4 (float32 on both sides; the tp sums add the shards'
-partial products in another order than one product does).  Sampled runs
+partial products in another order than one product does).  The other
+families the engine serves (qwen2-1.5b, nemotron, granite, stablelm,
+dbrx, pixtral) join the first test at tp 2, ``reduced()`` at 4 heads over
+2 kv heads, from the port's seeded init handed to the reference as jnp
+arrays; an engine given its shards already placed (drawn shard by shard
+for dbrx) serves as the whole tree and the reference do.  Sampled runs
 draw from different streams in the two packages: tp 2 is held against
 the port's tp 1 there (identical), and against the reference on
 structure.
@@ -23,9 +28,11 @@ import asyncio
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 from jax.sharding import PartitionSpec as P
 
 import repro.runtime.serve_loop as jax_serve
@@ -33,11 +40,13 @@ import repro.server as jax_server
 import repro_torch.server as port_server
 from repro.api import BranchSession as JaxSession
 from repro.configs import get_config
+from repro.configs.base import reduced
 from repro.distributed import sharding as jax_sharding
 from repro.models.model import Model as JaxModel
 from repro_torch.api import BranchSession
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config as port_config
+from repro_torch.configs.base import reduced as port_reduced
 from repro_torch.distributed import (
     DeviceMesh,
     ParallelPlan,
@@ -59,6 +68,8 @@ PATHS = {"fused": {}, "ref": {"attn_impl": "ref"},
 JAX_PATHS = {"fused": {"attn_impl": "fused_ref"}, "ref": {"attn_impl": "ref"},
              "int8": {"attn_impl": "fused_ref", "kv_dtype": "int8"}}
 GEOMETRY = dict(num_pages=64, page_size=4, max_pages_per_seq=16)
+#: a verify's four drafts of four tokens
+TP_DRAFTS = [[1, 2, 3, 4], [4, 3, 2, 1], [7, 7, 7, 7], [9, 8, 7, 6]]
 
 
 @pytest.fixture(scope="module")
@@ -107,19 +118,113 @@ def reference_cycles(setup):
             for path, kw in JAX_PATHS.items()}
 
 
-@pytest.mark.parametrize("tp", [1, 2, 4])
-@pytest.mark.parametrize("path", sorted(PATHS))
-def test_tp_serving_matches_single_device(setup, reference_cycles, path, tp):
-    """tp 1, 2 and 4 (kv heads 4, 2 and 1 a shard) are token-identical to
-    the reference's single-device engine and to the port's one shard,
+#: the other families at tp 2: ``reduced()`` at 4 heads over 2 kv heads in
+#: float32 (qwen2-1.5b: qkv bias and a tied head; nemotron: sqrelu; dbrx:
+#: geglu experts) on the fused path; the ``"ref"`` and int8 paths on one
+#: (they change only the decode attention and the pools, whose shapes the
+#: families share at these widths; ``paper-agentic`` holds them at tp 1,
+#: 2 and 4)
+FAMILIES = ("qwen2-1.5b", "nemotron-4-15b", "granite-8b", "stablelm-12b",
+            "dbrx-132b", "pixtral-12b")
+ALL_PATHS_FAMILY = "qwen2-1.5b"
+SERVING_CASES = (
+    [pytest.param("paper-agentic", path, tp, id=f"{path}-{tp}")
+     for path in sorted(PATHS) for tp in (1, 2, 4)]
+    + [pytest.param(arch, path, 2, id=f"{arch}-{path}-2")
+       for arch in FAMILIES
+       for path in (PATHS if arch == ALL_PATHS_FAMILY else ("fused",))])
+
+
+def family_setup(arch):
+    """``setup``'s four for a family: the port's seeded init, handed to the
+    reference as jnp arrays (its own init would add a compile)."""
+    kw = dict(dtype="float32", num_heads=4, num_kv_heads=2)
+    jcfg = dataclasses.replace(reduced(get_config(arch)), **kw)
+    pcfg = dataclasses.replace(port_reduced(port_config(arch)), **kw)
+    pparams = Model(pcfg).init(torch.Generator().manual_seed(0))
+    jparams = jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()),
+                                     pparams)
+    return (JaxModel(jcfg, attn_chunk=8, remat=False), jparams, Model(pcfg),
+            pparams)
+
+
+def family_cycle(eng):
+    """A shorter cycle (one compiled batch size): fork 2 off the prompt
+    (lazy CoW), 3 steps of both branches, commit one."""
+    sid = eng.add_request([1, 2, 3, 4, 5, 6])   # 5 cached: a shared tail
+    kids = eng.fork(sid, 2)
+    toks = [eng.decode(kids) for _ in range(3)]
+    eng.commit(kids[0])
+    return toks, eng.cow_dispatches, eng.cow_faults
+
+
+@pytest.fixture(scope="module")
+def serving_runs(setup, reference_cycles):
+    """(weights, cycle, the reference's single-device cycle) of a config
+    and path, each made once: ``paper-agentic``'s from the fixtures above,
+    each family's from :func:`family_setup`."""
+    made = {"paper-agentic": (setup, cycle, reference_cycles)}
+
+    def get(arch, path):
+        if arch not in made:
+            made[arch] = (family_setup(arch), family_cycle, {})
+        fam, run, refs = made[arch]
+        if path not in refs:
+            refs[path] = run(jax_engine(fam, **JAX_PATHS[path]))
+        return fam, run, refs[path]
+    return get
+
+
+@pytest.mark.parametrize("arch, path, tp", SERVING_CASES)
+def test_tp_serving_matches_single_device(serving_runs, arch, path, tp):
+    """tp 1, 2 and 4 of ``paper-agentic`` (kv heads 4, 2 and 1 a shard),
+    and tp 2 of the other families (:data:`FAMILIES`), are token-identical
+    to the reference's single-device engine and to the port's one shard,
     CoW counters included, on the fused, ``"ref"`` and int8 paths."""
-    eng = port_engine(setup, tp=tp, **PATHS[path])
-    got = cycle(eng)
+    fam, run, want = serving_runs(arch, path)
+    eng = port_engine(fam, tp=tp, **PATHS[path])
+    got = run(eng)
+    kv = fam[2].cfg.num_kv_heads
     assert eng.tp == eng.stats()["tp"] == len(eng.shards) == tp
-    assert [sh.k_pages.shape[3] for sh in eng.shards] == [4 // tp] * tp
-    assert got == reference_cycles[path]
-    assert got == cycle(port_engine(setup, **PATHS[path]))
+    assert [sh.k_pages.shape[3] for sh in eng.shards] == [kv // tp] * tp
+    assert got == want
+    assert got == run(port_engine(fam, **PATHS[path]))
     assert got[2] > 0 and got[1] == (1 if path == "ref" else 0)
+
+
+def verify_rows(eng):
+    """A 4x4 verify over a forked branch: its rows and the CoW counters
+    (the pass writes no pool, so it faults nothing)."""
+    sid = eng.add_request([9, 8, 7, 6, 5, 4, 3])
+    (branch,) = eng.fork(sid, 1)
+    return (eng.spec_verify(branch, TP_DRAFTS), eng.cow_dispatches,
+            eng.cow_faults)
+
+
+@pytest.mark.parametrize("arch", ["paper-agentic", "dbrx-132b"])
+def test_placed_shards_serve_as_the_whole_tree(serving_runs, arch):
+    """An engine given one tree per shard, already placed (``paper-
+    agentic``: placed copies of the reference's weights' shards;
+    ``dbrx-132b``: the port's seeded init drawn shard by shard), keeps
+    those tensors and serves token for token, CoW counters included, as
+    the reference's single device and tp 2 cut from the whole tree, and
+    verifies as the latter (which ``test_tp2_verify_rows_match_the_
+    reference`` holds to the reference)."""
+    fam, run, want = serving_runs(arch, "fused")
+    model, whole = fam[2], fam[3]
+    plan = serving_plan(serving_mesh(2, ["cpu"] * 2))
+    if arch == "paper-agentic":
+        shards = [pytree.tree_map(torch.clone, t)
+                  for t in shard_params(model.cfg, plan, whole)]
+    else:
+        shards = model.init(torch.Generator().manual_seed(0), shards=plan)
+    eng = ServeEngine(model, shards, mesh=plan.mesh, **GEOMETRY)
+    assert all(sh.params is tree for sh, tree in zip(eng.shards, shards))
+    got = run(eng)
+    assert got == want == run(port_engine(fam, tp=2))
+    rows = verify_rows(ServeEngine(model, shards, mesh=plan.mesh,
+                                   **GEOMETRY))
+    assert rows == verify_rows(port_engine(fam, tp=2))
 
 
 def spy_logits(monkeypatch, method):
@@ -395,7 +500,6 @@ def test_sanitize_drops_nondividing_axes(spec, shape):
 
 
 def moe_params(seed=0):
-    from repro.configs.base import reduced
     jcfg = dataclasses.replace(
         reduced(get_config("qwen3-moe-235b-a22b"), d_model=64),
         dtype="float32", num_experts=4, experts_per_token=2, num_kv_heads=2)
@@ -416,7 +520,6 @@ def test_serve_param_specs_match_the_reference(setup, name):
         jcfg = dataclasses.replace(get_config(name), dtype="float32",
                                    num_layers=2)
         if name == "qwen2-1.5b":
-            from repro.configs.base import reduced
             jcfg = dataclasses.replace(reduced(jcfg), tie_embeddings=True,
                                        qkv_bias=True)
         weights = jax.tree_util.tree_map(
