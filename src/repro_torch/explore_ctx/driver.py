@@ -46,6 +46,8 @@ from repro_torch.explore_ctx.context import (  # noqa: F401
     BranchContext,
     StateContext,
 )
+from repro_torch.obs import ENGINE_TRACK
+from repro_torch.obs.tracer import NO_SPAN
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +414,27 @@ class ExplorationDriver:
 
     def step(self, **decode_kw: Any) -> Dict[str, Any]:
         """One round: resume ready explorations, then one session step."""
-        self.session.admit()   # admit first so _WaitAdmitted binds + holds
+        tr = self.session.obs.tracer
+        with (tr.span(ENGINE_TRACK, "driver.step", live=len(self._live))
+              if tr.enabled else NO_SPAN) as span:
+            if span is not None:
+                tr.phase(ENGINE_TRACK, "driver.admit")
+            self.session.admit()   # admit first so _WaitAdmitted binds + holds
+            advance = (tr.phase(ENGINE_TRACK, "driver.advance")
+                       if span is not None else None)
+            resumed = self._resume()
+            if advance is not None:
+                advance.args["resumed"] = resumed
+                tr.phase(ENGINE_TRACK, None)
+            st = self.session.step(**decode_kw)
+            st["resumed"] = resumed
+            st["live_explorations"] = len(self._live)
+            self.steps += 1
+            return st
+
+    def _resume(self) -> int:
+        """Resume every live exploration whose wait is satisfied; returns
+        how many resumed."""
         resumed = 0
         for exp in list(self._live):
             if exp.done:
@@ -437,11 +459,7 @@ class ExplorationDriver:
                         exp.root = value
                     self._advance(exp, value)
                     resumed += 1
-        st = self.session.step(**decode_kw)
-        st["resumed"] = resumed
-        st["live_explorations"] = len(self._live)
-        self.steps += 1
-        return st
+        return resumed
 
     def run(self, max_steps: int = 10_000, *,
             until: Optional[Exploration] = None,

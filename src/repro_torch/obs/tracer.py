@@ -17,6 +17,14 @@ The :data:`NULL_TRACER` singleton is what instrumented objects hold
 when no tracer was supplied, so instrumentation sites never need a
 None check.
 
+A call that may raise records its span through :meth:`Tracer.span`, a
+context manager that closes it with whatever is still open above it
+(status ``error`` when the call raised), so the track's stack never
+mis-nests; its own phases (the engine's decode step, a prefill, a driver
+round) are :meth:`Tracer.phase` spans, each ending where the next
+begins.  A site writes ``with (tracer.span(...) if tracer.enabled else
+NO_SPAN):``, so a disabled tracer costs one branch there too.
+
 Re-entrant close guard: :meth:`end_span` *pops*; if a track has no open
 span it returns ``False`` and records nothing.  Lifecycle code uses the
 return value to fire resolution instants ("commit", "invalidated")
@@ -26,6 +34,7 @@ discovery, and an abort-after-ESTALE all race to close the same span.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -47,6 +56,7 @@ class Span:
     end_ns: Optional[int] = None
     status: str = "open"
     args: Dict[str, Any] = field(default_factory=dict)
+    phase: bool = False            # opened by Tracer.phase
 
     @property
     def duration_ns(self) -> int:
@@ -110,12 +120,56 @@ class Tracer:
             if not stack:
                 return False
             span = stack.pop()
-            span.end_ns = self._clock()
-            span.status = status
+            self._close(span, self._clock(), status)
             if args:
                 span.args.update(args)
-            self._spans.append(span)
             return True
+
+    def phase(self, track: int, name: Optional[str], **args
+              ) -> Optional[Span]:
+        """End the phase open on ``track`` (the innermost span, when this
+        method opened it) and open phase ``name`` in its place, at one
+        clock reading, so that one call's phases tile it.  ``name=None``
+        only ends the open phase.  Returns the new phase's span."""
+        if not self.enabled:
+            return None
+        with self._lock:
+            now = self._clock()
+            stack = self._open.setdefault(track, [])
+            if stack and stack[-1].phase:
+                self._close(stack.pop(), now, "ok")
+            if name is None:
+                return None
+            group = self._group.get(track, track)
+            span = Span(track=track, name=name, start_ns=now, group=group,
+                        args=args, phase=True)
+            stack.append(span)
+            self._group[track] = group
+            return span
+
+    def span(self, track: int, name: str, **args) -> "_Scope":
+        """A context manager recording span ``name`` on ``track`` around
+        its block; it yields the :class:`Span`."""
+        return _Scope(self, track, name, args)
+
+    def _close_through(self, track: int, span: Span, status: str) -> None:
+        """Close ``span`` and, first, every span still open above it (its
+        last phase, or what an exception left open), at one reading."""
+        with self._lock:
+            stack = self._open.get(track, [])
+            if not any(s is span for s in stack):
+                return
+            now = self._clock()
+            while True:
+                top = stack.pop()
+                self._close(top, now, status)
+                if top is span:
+                    break
+
+    def _close(self, span: Span, now: int, status: str) -> None:
+        span.end_ns = now
+        span.status = status
+        self._spans.append(span)
 
     def instant(self, track: int, name: str, **args) -> None:
         if not self.enabled:
@@ -227,9 +281,37 @@ class Tracer:
         return trace
 
 
+class _Scope:
+    """:meth:`Tracer.span`'s context manager."""
+
+    def __init__(self, tracer: Tracer, track: int, name: str,
+                 args: Dict[str, Any]):
+        self.tracer = tracer
+        self.track = track
+        self.name = name
+        self.args = args
+        self.opened: Optional[Span] = None
+
+    def __enter__(self) -> Optional[Span]:
+        self.opened = self.tracer.begin_span(self.track, self.name,
+                                             **self.args)
+        return self.opened
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self.opened is not None:
+            self.tracer._close_through(
+                self.track, self.opened, "ok" if exc_type is None
+                else "error")
+
+
 #: shared disabled tracer — what instrumented objects hold by default,
 #: so every site is `tracer.enabled`-guarded rather than None-checked.
 NULL_TRACER = Tracer(enabled=False)
 
+#: what a site enters in place of :meth:`Tracer.span` when the tracer is
+#: disabled: nothing is allocated, no clock is read, and it yields None
+NO_SPAN = contextlib.nullcontext()
 
-__all__ = ["ENGINE_TRACK", "Instant", "NULL_TRACER", "Span", "Tracer"]
+
+__all__ = ["ENGINE_TRACK", "Instant", "NO_SPAN", "NULL_TRACER", "Span",
+           "Tracer"]

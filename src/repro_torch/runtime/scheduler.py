@@ -50,6 +50,8 @@ import torch
 # (repro_torch.core.errors); re-exported here as in the JAX package.
 from repro_torch.core.errors import AdmissionDenied, BranchError, Errno
 from repro_torch.core.lifecycle import BranchStatus
+from repro_torch.obs import ENGINE_TRACK
+from repro_torch.obs.tracer import NO_SPAN
 from repro_torch.runtime.serve_loop import ServeEngine
 
 
@@ -524,42 +526,47 @@ class Scheduler:
         scheduler's own stream.  Returns counters for the serving loop /
         benchmarks.
         """
-        gen = (self._generator if generator is None
-               else self._as_generator(generator))
-        admitted = self.admit()
-        batch = [s for s in self.runnable()
-                 if s not in self._holds and not self._request_done(
-                     self._requests[self._seq_owner[s]], s)]
-        decoded = 0
-        for lo in range(0, len(batch), self.config.max_batch):
-            group = batch[lo: lo + self.config.max_batch]
-            g_row = [self._sampling.get(s, (greedy, temperature))[0]
-                     for s in group]
-            t_row = [self._sampling.get(s, (greedy, temperature))[1]
-                     for s in group]
-            # a generator advances with every draw: each group (and each
-            # step) gets fresh noise from the one stream
-            self.engine.decode(group, greedy=g_row, temperature=t_row,
-                               generator=None if all(g_row) else gen)
-            decoded += len(group)
-        retired = 0
-        for seq in self.runnable():   # re-asks the kernel; purges resolved
-            if seq in self._holds:
-                continue   # an exploration owns this sequence's pace
-            req = self._requests.get(self._seq_owner[seq])
-            if req is not None and self._request_done(req, seq):
-                self._retire(seq)
-                retired += int(seq not in self._seq_owner)
-        self.steps += 1
-        self.tokens_generated += decoded
-        return {
-            "admitted": len(admitted),
-            "batch": len(batch),
-            "decoded": decoded,
-            "retired": retired,
-            "waiting": len(self._waiting),
-            "running": len(self._seq_owner),
-        }
+        tr = self.obs.tracer
+        with (tr.span(ENGINE_TRACK, "sched.step") if tr.enabled
+              else NO_SPAN) as span:
+            gen = (self._generator if generator is None
+                   else self._as_generator(generator))
+            admitted = self.admit()
+            batch = [s for s in self.runnable()
+                     if s not in self._holds and not self._request_done(
+                         self._requests[self._seq_owner[s]], s)]
+            decoded = 0
+            for lo in range(0, len(batch), self.config.max_batch):
+                group = batch[lo: lo + self.config.max_batch]
+                g_row = [self._sampling.get(s, (greedy, temperature))[0]
+                         for s in group]
+                t_row = [self._sampling.get(s, (greedy, temperature))[1]
+                         for s in group]
+                # a generator advances with every draw: each group (and each
+                # step) gets fresh noise from the one stream
+                self.engine.decode(group, greedy=g_row, temperature=t_row,
+                                   generator=None if all(g_row) else gen)
+                decoded += len(group)
+            retired = 0
+            if span is not None:
+                tr.phase(ENGINE_TRACK, "sched.retire")
+            for seq in self.runnable():   # re-asks the kernel; purges resolved
+                if seq in self._holds:
+                    continue   # an exploration owns this sequence's pace
+                req = self._requests.get(self._seq_owner[seq])
+                if req is not None and self._request_done(req, seq):
+                    self._retire(seq)
+                    retired += int(seq not in self._seq_owner)
+            self.steps += 1
+            self.tokens_generated += decoded
+            return {
+                "admitted": len(admitted),
+                "batch": len(batch),
+                "decoded": decoded,
+                "retired": retired,
+                "waiting": len(self._waiting),
+                "running": len(self._seq_owner),
+            }
 
     def _as_generator(self, generator: Union[torch.Generator, int]
                       ) -> torch.Generator:

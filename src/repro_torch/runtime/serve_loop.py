@@ -105,6 +105,7 @@ from repro_torch.models.transformer import (
     torch_dtype,
 )
 from repro_torch.obs import ENGINE_TRACK, Observability
+from repro_torch.obs.tracer import NO_SPAN
 
 Pools = List[Optional[torch.Tensor]]   # [k_pages, v_pages, k_scales, v_scales]
 
@@ -366,7 +367,6 @@ class ServeEngine:
         self._c_prefill_dispatches = m.counter("engine.prefill_dispatches")
         self._h_fork_us = m.histogram("engine.fork_us")
         self._h_commit_us = m.histogram("engine.commit_us")
-        self._h_prefill_us = m.histogram("engine.prefill_us")
         self._h_checkpoint_us = m.histogram("tier.checkpoint_us")
         self._h_restore_us = m.histogram("tier.restore_us")
         self._h_decode_us = m.histogram("engine.decode_step_us")
@@ -661,13 +661,20 @@ class ServeEngine:
 
     def _dense_prefill(self, sid: int, tokens: List[int]) -> None:
         """Full-prompt prefill: the dense pass, scattered into the table."""
+        tr = self.obs.tracer
+        if tr.enabled:
+            tr.phase(ENGINE_TRACK, "engine.prefill.pass", kind="dense")
         toks = torch.tensor(tokens, dtype=torch.int64,
                             device=self.device)[None]
         ks, vs = self._dense_pass(toks)
         self._c_prefill_dispatches.inc()
+        if tr.enabled:
+            tr.phase(ENGINE_TRACK, "engine.prefill.scatter")
         self._scatter_prefill(self.kv.block_table(sid),
                               [k[:, 0] for k in ks], [v[:, 0] for v in vs],
                               len(tokens))
+        if tr.enabled:
+            tr.phase(ENGINE_TRACK, None)
 
     def _chunk_prefill(self, sid: int, tokens: List[int],
                        covered: int) -> None:
@@ -676,6 +683,9 @@ class ServeEngine:
         to the shared pages through the block table (one pass).  Each
         shard's suffix K/V stays on its shard, sharded on the kv-head dim
         as its pools are: it is never regathered."""
+        tr = self.obs.tracer
+        if tr.enabled:
+            tr.phase(ENGINE_TRACK, "engine.prefill.pass", kind="suffix")
         table = self.kv.block_table(sid)
         bt = np.zeros((1, self.max_pages), np.int32)
         bt[0, :len(table)] = table
@@ -684,11 +694,15 @@ class ServeEngine:
         ks, vs = self._chunk_pass(self._ints(bt), self._ints([covered]),
                                   suffix, want_kv=True)
         self._c_prefill_dispatches.inc()
+        if tr.enabled:
+            tr.phase(ENGINE_TRACK, "engine.prefill.scatter")
         # the prefix boundary is page-aligned (partial tail pages only
         # match whole prompts, which skip prefill entirely)
         self._scatter_prefill(table[covered // self.page_size:],
                               [k[:, 0] for k in ks], [v[:, 0] for v in vs],
                               len(tokens) - covered)
+        if tr.enabled:
+            tr.phase(ENGINE_TRACK, None)
 
     def add_request(self, prompt: Sequence[int]) -> int:
         """Prefill a prompt into a fresh paged sequence.
@@ -701,23 +715,33 @@ class ServeEngine:
         prompt = list(prompt)
         if not prompt:
             raise ValueError("empty prompt")
-        t0 = time.perf_counter_ns()
-        n_cached = len(prompt) - 1
-        shared: List[int] = []
-        covered = 0
-        if self.prefix_cache and n_cached:
-            shared, covered = self.kv.match_prefix(prompt[:-1])
-        sid = self.kv.new_seq(length=n_cached, prefix_pages=shared or None)
-        if n_cached > covered:
-            if covered:
-                self._chunk_prefill(sid, prompt[:-1], covered)
-            else:
-                self._dense_prefill(sid, prompt[:-1])
-        if self.prefix_cache and n_cached:
-            self.kv.register_prefix(sid, prompt[:-1])
-        self.token_domain.seed(sid, prompt)
-        self._h_prefill_us.observe((time.perf_counter_ns() - t0) / 1000.0)
-        return sid
+        tr = self.obs.tracer
+        with (tr.span(ENGINE_TRACK, "engine.add_request") if tr.enabled
+              else NO_SPAN) as span:
+            if span is not None:
+                tr.phase(ENGINE_TRACK, "engine.prefill.match")
+            n_cached = len(prompt) - 1
+            shared: List[int] = []
+            covered = 0
+            if self.prefix_cache and n_cached:
+                shared, covered = self.kv.match_prefix(prompt[:-1])
+            sid = self.kv.new_seq(length=n_cached,
+                                  prefix_pages=shared or None)
+            if span is not None:
+                tr.phase(ENGINE_TRACK, None)
+                span.args.update(seq=sid, cached=covered,
+                                 new=n_cached - covered)
+            if n_cached > covered:
+                if covered:
+                    self._chunk_prefill(sid, prompt[:-1], covered)
+                else:
+                    self._dense_prefill(sid, prompt[:-1])
+            if self.prefix_cache and n_cached:
+                if span is not None:
+                    tr.phase(ENGINE_TRACK, "engine.prefill.register")
+                self.kv.register_prefix(sid, prompt[:-1])
+            self.token_domain.seed(sid, prompt)
+            return sid
 
     # ------------------------------------------------------------------
     # branch ops (the paper's lifecycle, resolved by the shared kernel)
@@ -729,22 +753,30 @@ class ServeEngine:
         its first append is done at fork time, as one batched page copy
         for the whole sibling set.  The default stays lazy.
         """
-        t0 = time.perf_counter_ns()
-        if not eager_cow:
-            children = self.kv.fork(seq, n)
-        else:
-            children, ops = self.kv.fork_batch(seq, n)
-            if ops:
-                self._service_cow([op.src_page for op in ops],
-                                  [op.dst_page for op in ops])
-        self._h_fork_us.observe((time.perf_counter_ns() - t0) / 1000.0 / n)
-        return children
+        tr = self.obs.tracer
+        with (tr.span(ENGINE_TRACK, "engine.fork", seq=seq, n=n)
+              if tr.enabled else NO_SPAN):
+            t0 = time.perf_counter_ns()
+            if not eager_cow:
+                children = self.kv.fork(seq, n)
+            else:
+                children, ops = self.kv.fork_batch(seq, n)
+                if ops:
+                    self._service_cow([op.src_page for op in ops],
+                                      [op.dst_page for op in ops])
+            self._h_fork_us.observe(
+                (time.perf_counter_ns() - t0) / 1000.0 / n)
+            return children
 
     def commit(self, seq: int) -> int:
-        t0 = time.perf_counter_ns()
-        parent = self.kv.commit(seq)  # tokens + pages promoted atomically
-        self._h_commit_us.observe((time.perf_counter_ns() - t0) / 1000.0)
-        return parent
+        tr = self.obs.tracer
+        with (tr.span(ENGINE_TRACK, "engine.commit", seq=seq) if tr.enabled
+              else NO_SPAN):
+            t0 = time.perf_counter_ns()
+            parent = self.kv.commit(seq)  # tokens + pages promoted atomically
+            self._h_commit_us.observe(
+                (time.perf_counter_ns() - t0) / 1000.0)
+            return parent
 
     def abort(self, seq: int) -> None:
         self.kv.abort(seq)
@@ -854,72 +886,89 @@ class ServeEngine:
         engine's own, seeded at construction, when none is given).
         """
         b = len(seq_ids)
-        t0 = time.perf_counter_ns()
-        greedy_row = ([bool(greedy)] * b if isinstance(greedy, (bool, int))
-                      else [bool(g) for g in greedy])
-        temp_row = ([float(temperature)] * b
-                    if isinstance(temperature, (int, float))
-                    else [float(t) for t in temperature])
-        if len(greedy_row) != b or len(temp_row) != b:
-            raise ValueError("per-sequence sampling rows must match batch")
-        lengths_before = np.array([self.kv.length(s) for s in seq_ids],
-                                  np.int32)
-        for s, ln in zip(seq_ids, lengths_before):
-            if int(ln) // self.page_size + 1 > self.max_pages:
-                raise ValueError(
-                    f"sequence {s} would need "
-                    f"{int(ln) // self.page_size + 1} pages > "
-                    f"{self.max_pages} (max_pages_per_seq)")
-        # all-or-nothing slot reservation across the batch
-        slot_lists = self.kv.prepare_append_batch(seq_ids, 1)
-        slots = [sl[0] for sl in slot_lists]
-        cow_src = [c.src_page for sl in slots for c in sl.cow]
-        cow_dst = [c.dst_page for sl in slots for c in sl.cow]
-        if not self.fast_path:
-            # legacy path: the faults are their own dispatch, first
-            self._service_cow(cow_src, cow_dst)
-        bt, _ = self.kv.dense_block_tables(seq_ids, self.max_pages)
-        last = [self.token_domain.get(s)[-1] for s in seq_ids]
-        step_args = (
-            self._ints(bt), self._ints(lengths_before),
-            torch.tensor([sl.page for sl in slots], dtype=torch.int64,
-                         device=self.device),
-            torch.tensor([sl.offset for sl in slots], dtype=torch.int64,
-                         device=self.device),
-            torch.tensor(last, dtype=torch.int64, device=self.device)[:, None])
-        if self.fast_path:
-            cs, cd = _pad_pow2(cow_src, cow_dst, self.device)
-            if cow_src:
-                self._c_cow_faults.inc(len(cow_src))
-                self._c_cow_inline_steps.inc()
-            logits = self._fused_decode_step(*step_args, cs, cd)
-        else:
-            logits = self._legacy_decode_step(*step_args)
-        nxt = logits.argmax(dim=-1)
-        if not all(greedy_row):
-            gen = self.generator if generator is None else generator
-            temps = torch.tensor(temp_row, dtype=torch.float32,
-                                 device=self.device)
-            u = torch.rand(logits.shape, generator=gen, device=self.device,
-                           dtype=torch.float32)
-            gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-            sampled = (logits.float() / temps[:, None] + gumbel).argmax(-1)
-            keep = torch.tensor(greedy_row, device=self.device)
-            nxt = torch.where(keep, nxt, sampled)
-        out = [int(t) for t in nxt.tolist()]
-        for s, t in zip(seq_ids, out):
-            self.token_domain.append(s, t)
-        # .tolist() above synced the device step
-        dt_us = (time.perf_counter_ns() - t0) / 1000.0
-        self._h_decode_us.observe(dt_us)
-        self._h_batch.observe(b)
-        self._c_decode_steps.inc()
-        self._c_tokens.inc(b)
         tr = self.obs.tracer
-        if tr.enabled:
-            tr.instant(ENGINE_TRACK, "decode_step", batch=b,
-                       us=round(dt_us, 1))
-        return out
+        with (tr.span(ENGINE_TRACK, "engine.decode", rows=b) if tr.enabled
+              else NO_SPAN) as span:
+            if span is not None:
+                tr.phase(ENGINE_TRACK, "engine.decode.prepare")
+            t0 = time.perf_counter_ns()
+            greedy_row = ([bool(greedy)] * b if isinstance(greedy, (bool, int))
+                          else [bool(g) for g in greedy])
+            temp_row = ([float(temperature)] * b
+                        if isinstance(temperature, (int, float))
+                        else [float(t) for t in temperature])
+            if len(greedy_row) != b or len(temp_row) != b:
+                raise ValueError("per-sequence sampling rows must match batch")
+            lengths_before = np.array([self.kv.length(s) for s in seq_ids],
+                                      np.int32)
+            for s, ln in zip(seq_ids, lengths_before):
+                if int(ln) // self.page_size + 1 > self.max_pages:
+                    raise ValueError(
+                        f"sequence {s} would need "
+                        f"{int(ln) // self.page_size + 1} pages > "
+                        f"{self.max_pages} (max_pages_per_seq)")
+            # all-or-nothing slot reservation across the batch
+            slot_lists = self.kv.prepare_append_batch(seq_ids, 1)
+            slots = [sl[0] for sl in slot_lists]
+            cow_src = [c.src_page for sl in slots for c in sl.cow]
+            cow_dst = [c.dst_page for sl in slots for c in sl.cow]
+            bt, _ = self.kv.dense_block_tables(seq_ids, self.max_pages)
+            last = [self.token_domain.get(s)[-1] for s in seq_ids]
+            if span is not None:
+                span.args["cow"] = len(cow_src)
+                tr.phase(ENGINE_TRACK, "engine.decode.upload")
+            step_args = (
+                self._ints(bt), self._ints(lengths_before),
+                torch.tensor([sl.page for sl in slots], dtype=torch.int64,
+                             device=self.device),
+                torch.tensor([sl.offset for sl in slots], dtype=torch.int64,
+                             device=self.device),
+                torch.tensor(last, dtype=torch.int64,
+                             device=self.device)[:, None])
+            if self.fast_path:
+                cs, cd = _pad_pow2(cow_src, cow_dst, self.device)
+                if cow_src:
+                    self._c_cow_faults.inc(len(cow_src))
+                    self._c_cow_inline_steps.inc()
+            if span is not None:
+                tr.phase(ENGINE_TRACK, "engine.decode.forward",
+                         layers=self.cfg.num_layers)
+            if self.fast_path:
+                logits = self._fused_decode_step(*step_args, cs, cd)
+            else:
+                # legacy path: the faults are their own dispatch, first
+                self._service_cow(cow_src, cow_dst)
+                logits = self._legacy_decode_step(*step_args)
+            if span is not None:
+                tr.phase(ENGINE_TRACK, "engine.decode.sample")
+            nxt = logits.argmax(dim=-1)
+            if not all(greedy_row):
+                gen = self.generator if generator is None else generator
+                temps = torch.tensor(temp_row, dtype=torch.float32,
+                                     device=self.device)
+                u = torch.rand(logits.shape, generator=gen, device=self.device,
+                               dtype=torch.float32)
+                gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+                sampled = (logits.float() / temps[:, None] + gumbel).argmax(-1)
+                keep = torch.tensor(greedy_row, device=self.device)
+                nxt = torch.where(keep, nxt, sampled)
+            if span is not None:
+                tr.phase(ENGINE_TRACK, "engine.decode.readback")
+            out = [int(t) for t in nxt.tolist()]
+            if span is not None:
+                tr.phase(ENGINE_TRACK, None)
+            for s, t in zip(seq_ids, out):
+                self.token_domain.append(s, t)
+            # .tolist() above synced the device step
+            dt_us = (time.perf_counter_ns() - t0) / 1000.0
+            self._h_decode_us.observe(dt_us)
+            self._h_batch.observe(b)
+            self._c_decode_steps.inc()
+            self._c_tokens.inc(b)
+            if tr.enabled:
+                tr.instant(ENGINE_TRACK, "decode_step", batch=b,
+                           us=round(dt_us, 1))
+            return out
 
     def spec_verify(self, seq: int,
                     drafts: Sequence[Sequence[int]]) -> List[List[int]]:

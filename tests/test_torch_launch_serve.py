@@ -28,9 +28,14 @@ import torch
 
 from repro.launch import serve as jax_cli
 from repro_torch.launch import serve as port_cli
+from repro_torch.obs import ENGINE_TRACK
 from repro_torch.server import ServeClient
 
 ROOT = Path(__file__).resolve().parents[1]
+#: the reference's histogram the port does not keep: its clock stopped at
+#: the prefill's enqueue; the port's traced engine records an
+#: ``engine.add_request`` span with the prefill's phases instead
+NOT_PORTED = ("metric", "hist", "engine.prefill_us")
 
 REQUEST = re.compile(r"request (\d+): prompt (\[[^\]]*\]) -> (\[[^\]]*\]) "
                      r"\(best of (\d+), scores (\[[^\]]*\])\)(.*)$")
@@ -93,9 +98,17 @@ def test_trace_writes_a_timeline_and_the_metrics_block(capsys, tmp_path):
                                         str(ptrace)], capsys)
     assert prc == jrc == 0
     assert "metrics:" in plines
-    assert structure(plines) == structure(jlines)
+    want = structure(jlines)
+    assert NOT_PORTED in want and NOT_PORTED not in structure(plines)
+    assert structure(plines) == [x for x in want if x != NOT_PORTED]
     events = json.loads(ptrace.read_text())["traceEvents"]
-    names = {e["name"] for e in events}
+    # the engine track's complete spans (the serving path's phases) are the
+    # port's alone; tests/test_torch_engine_spans.py holds them
+    spans = {e["name"] for e in events
+             if e["ph"] == "X" and e["tid"] == ENGINE_TRACK}
+    assert {"driver.step", "engine.decode", "engine.add_request"} <= spans
+    names = {e["name"] for e in events
+             if not (e["ph"] == "X" and e["tid"] == ENGINE_TRACK)}
     assert names == {e["name"] for e in json.loads(
         jtrace.read_text())["traceEvents"]}
 
