@@ -10,7 +10,10 @@ The PyTorch counterpart of ``repro/runtime/serve_loop.py``:
   batch arrives as a (src, dst) vector, attention reads the *pre-copy*
   pool through ``page_map`` (a faulted dst reads its src) with the fresh
   token's K/V inline, and only then are the page copies and the token's
-  slot write applied, layer by layer.
+  slot write applied, layer by layer.  On one shard of a card, a batch of
+  up to ``DECODE_RUNGS[-1]`` rows replays that step as a CUDA graph
+  captured at the smallest rung of the ladder that holds it (see
+  :class:`_DecodeRung`).
 * ``attn_impl="ref"`` keeps the legacy two-dispatch step instead: the
   step's CoW faults are serviced first as one batched page copy (counted
   in ``cow_dispatches``), then per layer the token's K/V is written into
@@ -91,10 +94,12 @@ from repro_torch.distributed.sharding import (
     shard_params,
 )
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import (
     paged_attention,
     paged_chunk_attention,
 )
+from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import layers as L
 from repro_torch.models import sharded
 from repro_torch.models.model import Model
@@ -108,6 +113,16 @@ from repro_torch.obs import ENGINE_TRACK, Observability
 from repro_torch.obs.tracer import NO_SPAN
 
 Pools = List[Optional[torch.Tensor]]   # [k_pages, v_pages, k_scales, v_scales]
+
+#: the batch sizes the fused decode step is captured at, one CUDA graph a
+#: rung: a step of ``b`` rows runs the smallest rung ``>= b``, its rows
+#: past ``b`` padding; a larger batch runs the eager step
+DECODE_RUNGS = (1, 2, 4, 8) + tuple(range(16, 129, 8))
+
+#: the kernel wrappers' launch counters: a decode graph's capture calls the
+#: wrappers but launches nothing, so its counts are taken back; each replay
+#: launches what the capture counted, so it adds them again
+_LAUNCH_COUNTERS = (paged_ops.LAUNCHES, flash_ops.LAUNCHES)
 
 
 def params_to(params: Any, device: torch.device) -> Any:
@@ -237,7 +252,9 @@ def scale_spec(plan: ParallelPlan) -> Tuple[Any, ...]:
 
 class _Shard:
     """One tensor-parallel shard: its device, its slice of the parameter
-    tree (with per-layer views) and its kv-head slice of the pools."""
+    tree (with per-layer views) and its kv-head slice of the pools.  A pool
+    has one page row past the branch manager's ``num_pages``: the scratch
+    page, which no sequence holds and a padded decode row writes."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device, params: Any,
                  kv_heads: int, num_pages: int, page_size: int,
@@ -247,14 +264,14 @@ class _Shard:
         self.layers = [L.layer_params(params["layers"], i)
                        for i in range(cfg.num_layers)]
         dt = torch.int8 if quantized else torch_dtype(cfg)
-        shape = (cfg.num_layers, num_pages, page_size, kv_heads,
+        shape = (cfg.num_layers, num_pages + 1, page_size, kv_heads,
                  cfg.head_dim)
         self.k_pages = torch.zeros(shape, dtype=dt, device=device)
         self.v_pages = torch.zeros(shape, dtype=dt, device=device)
         self.k_scales: Optional[torch.Tensor] = None
         self.v_scales: Optional[torch.Tensor] = None
         if quantized:
-            sshape = (cfg.num_layers, num_pages, kv_heads)
+            sshape = (cfg.num_layers, num_pages + 1, kv_heads)
             self.k_scales = torch.zeros(sshape, dtype=torch.float32,
                                         device=device)
             self.v_scales = torch.zeros(sshape, dtype=torch.float32,
@@ -262,6 +279,51 @@ class _Shard:
 
     def pools(self) -> Pools:
         return [self.k_pages, self.v_pages, self.k_scales, self.v_scales]
+
+
+class _DecodeRung:
+    """The fused decode step's inputs at ``rows`` rows in static device
+    buffers, and the step's CUDA graph over them once captured.
+
+    One int32 buffer holds the block table ``[rows, max_pages]`` and six
+    vectors of ``rows``: lengths, slot pages, slot offsets, tokens, CoW
+    sources and CoW destinations (an append of one token faults at most one
+    page a row).  A padded row has length 0, a zero block table, token 0
+    and its slot on the scratch page; padded CoW pairs repeat the last real
+    pair, or are (scratch, scratch) in a step without a fault, so every
+    padded write lands on the scratch page or repeats a real one."""
+
+    def __init__(self, rows: int, max_pages: int, device: torch.device):
+        self.rows = rows
+        self.buf = torch.zeros(rows * (max_pages + 6), dtype=torch.int32,
+                               device=device)
+        self.table = self.buf[:rows * max_pages].view(rows, max_pages)
+        (self.lengths, self.pages, self.offsets, self.tokens, self.cow_src,
+         self.cow_dst) = self.buf[rows * max_pages:].view(6, rows)
+        self.graph: Optional[Any] = None     # torch.cuda.CUDAGraph
+        self.logits: Optional[torch.Tensor] = None
+        # (counter, kernel, launches) of one replay
+        self.launches: List[Tuple[Dict[str, int], str, int]] = []
+
+    def fill(self, host: np.ndarray, bt: np.ndarray, lengths: np.ndarray,
+             slot_pages: List[int], slot_offsets: List[int],
+             tokens: List[int], cow_src: List[int], cow_dst: List[int],
+             scratch: int) -> None:
+        """Lay a step of ``len(tokens)`` rows out in ``host``, the image of
+        :attr:`buf`, padded to :attr:`rows`."""
+        r, b = self.rows, len(tokens)
+        table = host[:self.table.numel()].reshape(self.table.shape)
+        table[:b] = bt
+        table[b:] = 0
+        vec = host[self.table.numel():].reshape(6, r)
+        vec[:4, b:] = 0
+        vec[1, b:] = scratch
+        vec[:4, :b] = (lengths, slot_pages, slot_offsets, tokens)
+        n = len(cow_src)
+        assert n <= r, "more CoW faults than rows"
+        vec[4:, :n] = (cow_src, cow_dst)
+        vec[4:, n:] = np.array([[cow_src[-1]], [cow_dst[-1]]]) if n \
+            else scratch
 
 
 # ---------------------------------------------------------------------------
@@ -372,8 +434,27 @@ class ServeEngine:
         self._h_decode_us = m.histogram("engine.decode_step_us")
         self._h_batch = m.histogram("engine.batch_occupancy",
                                     lo=1.0, growth=2.0, buckets=12)
-        pool_bytes = sum(t.nbytes for sh in self.shards for t in sh.pools()
-                         if t is not None)
+        self._c_graph_replays = m.counter("engine.decode_graph_replays")
+        self._c_graph_captures = m.counter("engine.decode_graph_captures")
+        self._c_padded_rows = m.counter("engine.decode_padded_rows")
+        self._h_capture_ms = m.histogram("engine.decode_graph_capture_ms")
+        # page_map without a redirect, over the pools' rows (the scratch
+        # page, row num_pages, included)
+        self._page_identity = torch.arange(num_pages + 1, dtype=torch.int32,
+                                           device=self.device)
+        # the fused step on one shard runs its rungs' static buffers (and
+        # graphs, on a card) where padded rows cannot change a real row's
+        # result: a dense FFN, or an MoE whose capacity drops no row
+        self._rungs: Optional[Dict[int, _DecodeRung]] = (
+            {} if self.fast_path and self.tp == 1 and (
+                not cfg.is_moe or cfg.moe_capacity_factor
+                * cfg.experts_per_token >= cfg.num_experts) else None)
+        self._staging: Optional[torch.Tensor] = None
+        self._graph_pool: Any = None
+        # the pages the branch manager hands out (the scratch page is not
+        # one of them)
+        pool_bytes = sum(t[:, :num_pages].nbytes for sh in self.shards
+                         for t in sh.pools() if t is not None)
         m.gauge(f"engine.kv_pool_bytes_{self.kv_dtype or 'fp'}").set(
             pool_bytes)
         m.gauge("engine.kv_pool_bytes").set(pool_bytes)
@@ -495,21 +576,126 @@ class ServeEngine:
         return sharded.gathered_logits(
             cfg, [sh.params for sh in self.shards], h)
 
-    def _identity_map(self) -> torch.Tensor:
-        return torch.arange(self.kv.num_pages, dtype=torch.int32,
-                            device=self.device)
+    def _fused_decode_step(self, bt: np.ndarray, lengths: np.ndarray,
+                           slot_pages: List[int], slot_offsets: List[int],
+                           tokens: List[int], cow_src: List[int],
+                           cow_dst: List[int]) -> torch.Tensor:
+        """One fused decode step of ``b = len(tokens)`` rows from the
+        host's inputs; returns logits ``[b, V]``.
 
-    def _fused_decode_step(self, bt: torch.Tensor, lengths: torch.Tensor,
-                           slot_pages: torch.Tensor,
-                           slot_offsets: torch.Tensor, tokens: torch.Tensor,
-                           cow_src: torch.Tensor, cow_dst: torch.Tensor
-                           ) -> torch.Tensor:
-        """One decode step, CoW fault service included; returns logits
-        ``[b, V]``.  Per layer, attention reads the pre-copy pool through
-        ``page_map``; the page copies (scales too) and the token's slot
-        write follow, in place, each shard on its kv-head slice."""
-        page_map = self._identity_map()
+        A batch on the rung ladder is laid out in a pinned host buffer,
+        copied into its rung's static buffers at once and run there: the
+        rung's first step eagerly, after which (on a card) the step is
+        captured as a CUDA graph that every later step of the rung replays.
+        Any other batch is uploaded tensor by tensor and runs eagerly."""
+        tr = self.obs.tracer
+        b = len(tokens)
+        rung = self._decode_rung(b)
+        if rung is None:
+            args = (self._step_tensors(bt, lengths, slot_pages, slot_offsets,
+                                       tokens)
+                    + _pad_pow2(cow_src, cow_dst, self.device))
+            if tr.enabled:
+                tr.phase(ENGINE_TRACK, "engine.decode.forward",
+                         layers=self.cfg.num_layers, graph=0, rung=0)
+            return self._fused_forward(*args)
+        on_card = self.device.type == "cuda"
+        if self._staging is None:
+            top = DECODE_RUNGS[-1] * (self.max_pages + 6)
+            self._staging = torch.empty(top, dtype=torch.int32,
+                                        pin_memory=on_card)
+        # the last step's copy has read the staging buffer: every decode
+        # ends in the host's readback of its tokens, after that copy
+        host = self._staging[:rung.buf.numel()]
+        rung.fill(host.numpy(), bt, lengths, slot_pages, slot_offsets, tokens,
+                  cow_src, cow_dst, scratch=self.kv.num_pages)
+        rung.buf.copy_(host, non_blocking=True)
+        replay = rung.graph is not None
+        if tr.enabled:
+            tr.phase(ENGINE_TRACK, "engine.decode.forward",
+                     layers=self.cfg.num_layers, graph=int(replay),
+                     rung=rung.rows)
+        if replay:
+            rung.graph.replay()
+            for counts, name, n in rung.launches:
+                counts[name] += n
+            self._c_graph_replays.inc()
+            logits = rung.logits
+        else:
+            logits = self._rung_forward(rung)
+            if on_card:
+                self._capture(rung)
+        self._c_padded_rows.inc(rung.rows - b)
+        return logits[:b]
+
+    def _step_tensors(self, bt: np.ndarray, lengths: np.ndarray,
+                      slot_pages: List[int], slot_offsets: List[int],
+                      tokens: List[int]) -> Tuple[torch.Tensor, ...]:
+        """An eager decode step's inputs on the device, a copy each."""
+        def longs(x: List[int]) -> torch.Tensor:
+            return torch.tensor(x, dtype=torch.int64, device=self.device)
+        return (self._ints(bt), self._ints(lengths), longs(slot_pages),
+                longs(slot_offsets), longs(tokens)[:, None])
+
+    def _decode_rung(self, b: int) -> Optional[_DecodeRung]:
+        """The rung a decode of ``b`` rows runs at, or None where it runs
+        the eager step: off the ladder, or an engine whose padded rows
+        could change a real row (several shards, the legacy path, an MoE
+        that drops rows)."""
+        if self._rungs is None or b > DECODE_RUNGS[-1]:
+            return None
+        rows = next(r for r in DECODE_RUNGS if r >= b)
+        if rows not in self._rungs:
+            self._rungs[rows] = _DecodeRung(rows, self.max_pages,
+                                            self.device)
+        return self._rungs[rows]
+
+    def _rung_forward(self, rung: _DecodeRung) -> torch.Tensor:
+        """The fused step over a rung's static buffers: the body its graph
+        captures."""
+        return self._fused_forward(
+            rung.table, rung.lengths, rung.pages.long(), rung.offsets.long(),
+            rung.tokens.long()[:, None], rung.cow_src.long(),
+            rung.cow_dst.long())
+
+    def _capture(self, rung: _DecodeRung) -> None:
+        """Capture the rung's step as a CUDA graph (its inputs already ran
+        eagerly once, so every kernel's attributes and library handles are
+        set up).  The rungs share one graph memory pool: their replays
+        never overlap.  ``thread_local``: another thread may use the card
+        meanwhile.  The kernel launches the capture's calls counted move to
+        the rung, for its replays to count."""
+        t0 = time.perf_counter_ns()
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = [dict(counts) for counts in _LAUNCH_COUNTERS]
+        with torch.cuda.device(self.device), torch.cuda.graph(
+                graph, pool=self._graph_pool,
+                stream=torch.cuda.Stream(self.device),
+                capture_error_mode="thread_local"):
+            logits = self._rung_forward(rung)
+        rung.launches = [(counts, name, counts[name] - was[name])
+                         for counts, was in zip(_LAUNCH_COUNTERS, before)
+                         for name in counts if counts[name] != was[name]]
+        for counts, name, n in rung.launches:
+            counts[name] -= n
+        rung.graph, rung.logits = graph, logits
+        self._c_graph_captures.inc()
+        self._h_capture_ms.observe((time.perf_counter_ns() - t0) / 1e6)
+
+    def _fused_forward(self, bt: torch.Tensor, lengths: torch.Tensor,
+                       slot_pages: torch.Tensor, slot_offsets: torch.Tensor,
+                       tokens: torch.Tensor, cow_src: torch.Tensor,
+                       cow_dst: torch.Tensor) -> torch.Tensor:
+        """The eager fused decode step over device inputs, CoW fault
+        service included; returns logits ``[b, V]``.  Per layer, attention
+        reads the pre-copy pool through ``page_map``; the page copies
+        (scales too) and the token's slot write follow, in place, each
+        shard on its kv-head slice."""
+        page_map = self._page_identity
         if cow_src.numel():
+            page_map = page_map.clone()
             page_map[cow_dst] = cow_src.to(torch.int32)
         h = embed_tokens(self.cfg, self.shards[0].params, tokens)
         bt, lens, page_map, slot_pages, slot_offsets, cow_src, cow_dst = (
@@ -582,7 +768,7 @@ class ServeEngine:
             t, dtype=torch.int32, device=self.device)[None, :]
         positions, bt, lens, page_map = (
             self._rep(x) for x in (positions, bt, lengths,
-                                   self._identity_map()))
+                                   self._page_identity))
         ks = [[] for _ in self.shards]
         vs = [[] for _ in self.shards]
         for i in range(cfg.num_layers):
@@ -917,25 +1103,22 @@ class ServeEngine:
             if span is not None:
                 span.args["cow"] = len(cow_src)
                 tr.phase(ENGINE_TRACK, "engine.decode.upload")
-            step_args = (
-                self._ints(bt), self._ints(lengths_before),
-                torch.tensor([sl.page for sl in slots], dtype=torch.int64,
-                             device=self.device),
-                torch.tensor([sl.offset for sl in slots], dtype=torch.int64,
-                             device=self.device),
-                torch.tensor(last, dtype=torch.int64,
-                             device=self.device)[:, None])
+            pages = [sl.page for sl in slots]
+            offsets = [sl.offset for sl in slots]
             if self.fast_path:
-                cs, cd = _pad_pow2(cow_src, cow_dst, self.device)
                 if cow_src:
                     self._c_cow_faults.inc(len(cow_src))
                     self._c_cow_inline_steps.inc()
-            if span is not None:
-                tr.phase(ENGINE_TRACK, "engine.decode.forward",
-                         layers=self.cfg.num_layers)
-            if self.fast_path:
-                logits = self._fused_decode_step(*step_args, cs, cd)
+                # the forward phase opens inside, after the upload
+                logits = self._fused_decode_step(bt, lengths_before, pages,
+                                                 offsets, last, cow_src,
+                                                 cow_dst)
             else:
+                step_args = self._step_tensors(bt, lengths_before, pages,
+                                               offsets, last)
+                if span is not None:
+                    tr.phase(ENGINE_TRACK, "engine.decode.forward",
+                             layers=self.cfg.num_layers, graph=0, rung=0)
                 # legacy path: the faults are their own dispatch, first
                 self._service_cow(cow_src, cow_dst)
                 logits = self._legacy_decode_step(*step_args)
@@ -1012,4 +1195,7 @@ class ServeEngine:
         st["tp"] = self.tp
         st["attn_impl"] = self.attn_impl
         st["kv_dtype"] = self.kv_dtype or self.cfg.dtype
+        st["decode_graph_replays"] = self._c_graph_replays.value
+        st["decode_graph_captures"] = self._c_graph_captures.value
+        st["decode_padded_rows"] = self._c_padded_rows.value
         return st

@@ -268,6 +268,8 @@ def phase12_first_step(model, params, monkeypatch, **engine):
 
     def route(*args, **kw):
         out = real_route(*args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            return out          # a decode graph's capture runs nothing
         if not first:
             first.append(out[2].tolist())
         if stepping[0]:

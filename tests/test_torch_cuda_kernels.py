@@ -565,6 +565,80 @@ def test_moe_engine_on_the_card_matches_the_cpu(gen, name, attn_impl):
     assert out["cuda"] == out["cpu"]
 
 
+@pytest.mark.parametrize("name", ["paper-agentic", "dbrx-132b"])
+def test_decode_graph_replay_matches_the_eager_step(gen, name):
+    """20 fused decode steps of a small bf16 model (dbrx at capacity factor
+    E/K: no row dropped) on rungs 1, 4 and 8, each step's graph replay held
+    against the eager step the engine keeps (``_fused_forward``, unpadded)
+    run on the same inputs after it: the greedy tokens agree on all but at
+    most one step, the logits within one bf16 ulp of the step's largest.
+    Each rung is captured once, after its first (eager) step, and replayed
+    at every later one; the profiler sees K1 by name under replay, and
+    K1's launch counter counts each launch a replay ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.serve_loop import _pad_pow2
+
+    cfg = reduced(get_config(name), d_model=128)
+    if cfg.is_moe:
+        cfg = dataclasses.replace(
+            cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    model = Model(dataclasses.replace(cfg, dtype="bfloat16"))
+    params = model.init(torch.Generator().manual_seed(0))
+    eng = ServeEngine(model, params, num_pages=64, page_size=4,
+                      max_pages_per_seq=16, device="cuda")
+    pairs, rungs = [], set()
+
+    def replay_then_eager(bt, lengths, pages, offsets, tokens, cow_src,
+                          cow_dst, _real=eng._fused_decode_step):
+        got = _real(bt, lengths, pages, offsets, tokens, cow_src,
+                    cow_dst).float()
+        want = eng._fused_forward(
+            *eng._step_tensors(bt, lengths, pages, offsets, tokens),
+            *_pad_pow2(cow_src, cow_dst, eng.device)).float()
+        pairs.append((got, want))
+        rungs.add(eng._decode_rung(len(tokens)).rows)
+        return got
+    eng._fused_decode_step = replay_then_eager
+    sid = eng.add_request([5, 17, 3, 42, 7, 11, 2, 9, 30, 4, 8, 1, 22])
+    for _ in range(4):
+        eng.decode([sid])
+    kids = eng.fork(sid, 3)
+    for _ in range(8):
+        eng.decode(kids)                  # the first faults 3 tail pages
+    batch = kids + [eng.add_request([1, 2, 3, 4, 5, 6]),
+                    eng.add_request([9, 8, 7])]
+    for _ in range(8):
+        eng.decode(batch)
+    st = eng.stats()
+    assert rungs == {1, 4, 8} and len(pairs) == 20
+    assert st["decode_graph_captures"] == len(rungs)
+    assert st["decode_graph_replays"] == len(pairs) - len(rungs)
+    assert st["decode_padded_rows"] == 8 * 1 + 8 * 3
+    flips = sum(not torch.equal(g.argmax(-1), w.argmax(-1))
+                for g, w in pairs)
+    assert flips <= 1, flips
+    for g, w in pairs:
+        ulp = 2 ** -7 * w.abs().max().item()
+        torch.testing.assert_close(g, w, rtol=2 ** -7, atol=ulp)
+
+    del eng._fused_decode_step            # the engine's own step again
+    eng.decode(batch)                     # rung 8's replay, traced
+    torch.cuda.synchronize()
+    before = paged_ops.LAUNCHES[paged_ops.NAME]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.decode(batch)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert sum("paged_tc_kernel" in n for n in names) == cfg.num_layers, \
+        sorted(set(names))
+    assert paged_ops.LAUNCHES[paged_ops.NAME] - before == sum(
+        "paged_tc_kernel" in n or "paged_chunk_combine" in n for n in names)
+    assert eng.stats()["decode_graph_replays"] == len(pairs) - len(rungs) + 2
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}

@@ -156,7 +156,9 @@ def test_engine_calls_record_spans_phases_and_args(model_params):
     assert decode.args["cow"] == 2     # each child faults the shared tail
     phases = children(pairs, decode)
     assert [s.name for s in phases] == DECODE_PHASES
-    assert phases[2].args == {"layers": eng.cfg.num_layers}
+    # two rows on rung 2; no graph off the card
+    assert phases[2].args == {"layers": eng.cfg.num_layers, "graph": 0,
+                              "rung": 2}
     # the phases tile the step, from its first reading to its readback
     assert all(x.end_ns == y.start_ns for x, y in zip(phases, phases[1:]))
     assert decode.start_ns < phases[0].start_ns

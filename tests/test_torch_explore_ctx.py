@@ -36,6 +36,7 @@ from repro.models.model import Model as JaxModel
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config as port_config
 from repro_torch.models import Model
+from torch_parity import shared_stats
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +82,7 @@ def drained(sched):
     assert st["token_tails"] == 0
     assert len(sched.engine.kv.tree) == 0
     st.pop("attn_impl")
-    return st
+    return shared_stats(sched, st)
 
 
 def refusal(fn, *args, **kw):

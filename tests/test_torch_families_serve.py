@@ -28,6 +28,7 @@ from repro_torch.configs import get_config as port_config
 from repro_torch.configs.base import reduced as port_reduced
 from repro_torch.models import Model
 from repro_torch.runtime import ServeEngine
+from torch_parity import shared_stats
 
 NAMES = ["granite-8b", "nemotron-4-15b", "stablelm-12b", "pixtral-12b"]
 PROMPT = (5, 17, 3, 42, 7, 11, 2, 9, 30, 4, 8, 1, 22)
@@ -73,7 +74,7 @@ def exercise(eng):
 def counters(eng):
     st = eng.stats()
     st.pop("attn_impl")
-    return st
+    return shared_stats(eng, st)
 
 
 @pytest.mark.parametrize("path", ["fused", "ref", "int8"])

@@ -30,6 +30,7 @@ from repro.launch import serve as jax_cli
 from repro_torch.launch import serve as port_cli
 from repro_torch.obs import ENGINE_TRACK
 from repro_torch.server import ServeClient
+from torch_parity import shared_metric_lines
 
 ROOT = Path(__file__).resolve().parents[1]
 #: the reference's histogram the port does not keep: its clock stopped at
@@ -98,7 +99,8 @@ def test_trace_writes_a_timeline_and_the_metrics_block(capsys, tmp_path):
                                         str(ptrace)], capsys)
     assert prc == jrc == 0
     assert "metrics:" in plines
-    want = structure(jlines)
+    plines = shared_metric_lines(True, plines)
+    want = structure(shared_metric_lines(False, jlines))
     assert NOT_PORTED in want and NOT_PORTED not in structure(plines)
     assert structure(plines) == [x for x in want if x != NOT_PORTED]
     events = json.loads(ptrace.read_text())["traceEvents"]

@@ -33,6 +33,7 @@ from repro_torch.configs.base import reduced as port_reduced
 from repro_torch.models import Model
 from repro_torch.models import moe as port_moe
 from repro_torch.runtime import ServeEngine
+from torch_parity import shared_stats
 
 TOL = 1e-4
 NAMES = ["qwen3-moe-235b-a22b", "dbrx-132b"]
@@ -259,7 +260,7 @@ def exercise(eng):
 def counters(eng):
     st = eng.stats()
     st.pop("attn_impl")
-    return st
+    return shared_stats(eng, st)
 
 
 @pytest.mark.parametrize("path", ["fused", "ref", "int8"])

@@ -39,6 +39,12 @@ from repro.models.model import Model as JaxModel
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config as port_config
 from repro_torch.models import Model
+from torch_parity import (
+    is_port,
+    shared_counters,
+    shared_metric_lines,
+    shared_stats,
+)
 
 
 @pytest.fixture(scope="module")
@@ -334,8 +340,9 @@ def engine_counters_are_registry_views(P):
     assert snap["gauges"]["engine.kv_pool_bytes"] > 0
     assert snap["counters"]["kv.branches_forked"] == 3
     st.pop("attn_impl")
-    return (snap["counters"], snap["gauges"],
-            snap["histograms"]["engine.batch_occupancy"], st)
+    return (shared_counters(is_port(eng), snap["counters"]), snap["gauges"],
+            snap["histograms"]["engine.batch_occupancy"],
+            shared_stats(eng, st))
 
 
 @scenario
@@ -378,7 +385,10 @@ def session_stat_metrics_and_format_tree(P):
     session.finish(root)                 # release the handle (BL002)
     counters = [ln for ln in text.splitlines()
                 if ln.strip().startswith("counter ")]
-    return (view["metrics"]["counters"], view["footprints"],
+    port = is_port(eng)
+    counters = shared_metric_lines(port, counters)
+    return (shared_counters(port, view["metrics"]["counters"]),
+            view["footprints"],
             sorted(view), sorted(per_hd), counters,
             session.format_tree())
 

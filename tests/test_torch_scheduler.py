@@ -35,6 +35,7 @@ from repro.models.model import Model as JaxModel
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config as port_config
 from repro_torch.models import Model
+from torch_parity import is_port, shared_counters, shared_stats
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +87,7 @@ def refusal(fn, *args, **kw):
 def stats(eng_or_sched):
     st = dict(eng_or_sched.stats())
     st.pop("attn_impl")
-    return st
+    return shared_stats(eng_or_sched, st)
 
 
 def pages_for(eng, n_tokens):
@@ -196,7 +197,8 @@ def submit_refusals_carry_errno(P):
     res = sched.result(rid)
     assert len(res) == 4
     assert all(r == ("AdmissionDenied", "ENOSPC") for r in out)
-    return out, res, sched.obs.metrics.snapshot()["counters"]
+    return out, res, shared_counters(is_port(sched),
+                                     sched.obs.metrics.snapshot()["counters"])
 
 
 @scenario

@@ -41,6 +41,7 @@ from repro.models.model import Model as JaxModel
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config as port_config
 from repro_torch.models import Model
+from torch_parity import shared_stats
 
 PORT_IMPL = {"ref": "ref", "fused_ref": "auto", "interpret": "auto"}
 
@@ -320,7 +321,7 @@ def scheduler_demotes_held_before_denying(P, oracle):
     stats = sched.stats()
     stats.pop("attn_impl", None)
     return (held, admitted, tiered, unhold, restore, steps,
-            eng.tokens(tiered[0]), stats)
+            eng.tokens(tiered[0]), shared_stats(sched, stats))
 
 
 @scenario

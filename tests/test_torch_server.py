@@ -40,6 +40,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config as port_config
 from repro_torch.models import Model
 from repro_torch.server import multiplex as port_multiplex
+from torch_parity import shared_metric_lines
 
 
 @pytest.fixture(scope="module")
@@ -155,9 +156,11 @@ def metrics_record(P, text, counts=True):
     """Counters whole (they count structure) unless requests raced for the
     engine's steps; gauges and histograms by kind and name (their values
     are times and levels).  The reference has ``NOT_PORTED`` and the port
-    has not; the rest is compared."""
+    has not, the port has its decode-graph metrics (``torch_parity``) and
+    the reference has not; the rest is compared."""
     out = []
-    for ln in text.splitlines():
+    for ln in shared_metric_lines(P.server is not jax_server,
+                                  text.splitlines()):
         kind, name = ln.split()[:2]
         out.append(ln if kind == "counter" and counts else (kind, name))
     assert (NOT_PORTED in out) == (P.server is jax_server)

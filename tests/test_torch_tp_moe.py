@@ -174,5 +174,9 @@ def test_tp_moe_serving_matches_single_device(moe_setup, monkeypatch, path,
     assert got[2] == got[None] == want
     assert len(ids[2]) == 2 * len(ids[None]) > 0
     for i, one in enumerate(ids[None]):
-        assert torch.equal(ids[2][2 * i], one)
-        assert torch.equal(ids[2][2 * i + 1], one)
+        # one dropless shard pads a decode to its rung: its routing call's
+        # first rows are the real ones, the rows tp 2 routes
+        n = len(ids[2][2 * i])
+        assert len(one) >= n
+        assert torch.equal(ids[2][2 * i], one[:n])
+        assert torch.equal(ids[2][2 * i + 1], one[:n])
