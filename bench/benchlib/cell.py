@@ -214,6 +214,18 @@ def _counters(engine: Any) -> Dict[str, float]:
     return {name: m.counter(name).value for name in COUNTERS}
 
 
+def kv_pool_pages(cfg: Any, serve: Dict[str, Any]) -> int:
+    """The KV pool's pages for a configuration's ``serve``:
+    ``kv_pool_bytes`` is a card's, and over ``tp`` shards a card holds its
+    shard's kv heads (all of them where the heads do not split)."""
+    from repro_torch.distributed.sharding import kv_split
+
+    shards = serve.get("tp", 1)
+    kv_tp = shards if kv_split(cfg, shards) else 1
+    per_token = cfg.kv_bytes_per_token(BYTES[cfg.dtype]) // kv_tp
+    return int(serve["kv_pool_bytes"] // (serve["page_size"] * per_token))
+
+
 class System:
     """The port's engine, session and driver for one cell and seed."""
 
@@ -221,6 +233,9 @@ class System:
                  seed: int, device: str):
         from repro_torch.api import BranchSession
         from repro_torch.configs.base import ArchConfig
+        from repro_torch.distributed.mesh import serving_plan, tp_mesh
+        from repro_torch.distributed.sharding import (serve_specs,
+                                                      tree_map_with_path)
         from repro_torch.explore_ctx import ExplorationDriver
         from repro_torch.models.model import Model
         from repro_torch.runtime.serve_loop import ServeEngine
@@ -229,16 +244,28 @@ class System:
         self.cfg = ArchConfig(**config["model"])
         self.model = Model(self.cfg)
         serve = config["serve"]
-        self.weights = W.draw(self.model.init(device="meta"), seed, device)
-        page = serve["page_size"]
-        num_pages = int(serve["kv_pool_bytes"]
-                        // (page * self.cfg.kv_bytes_per_token(
-                            BYTES[self.cfg.dtype])))
+        like = self.model.init(device="meta")
+        # tensor-parallel shards: 1 serves the whole tree on ``device``
+        shards = serve.get("tp", 1)
+        if shards == 1:
+            self.weights = W.draw(like, seed, device)
+            params, place = self.weights, {"device": device}
+        else:
+            mesh = tp_mesh(shards, device)
+            plan = serving_plan(mesh)
+            specs = serve_specs(self.cfg, plan, like)
+            axes = tree_map_with_path(
+                lambda _, spec: (spec.index(plan.tp_axis)
+                                 if plan.tp_axis in spec else None), specs)
+            self.weights = W.draw_shards(like, axes, plan.devices, seed)
+            params = W.shard_trees(self.weights, shards)
+            place = {"mesh": mesh}
         self.engine = ServeEngine(
-            self.model, self.weights, num_pages=num_pages, page_size=page,
+            self.model, params, num_pages=kv_pool_pages(self.cfg, serve),
+            page_size=serve["page_size"],
             max_pages_per_seq=serve["max_pages_per_seq"],
-            prefix_cache=serve["prefix_cache"], device=device,
-            seed=seed % (1 << 63))
+            prefix_cache=serve["prefix_cache"], seed=seed % (1 << 63),
+            **place)
         self.rec = Record()
         instrument(self.engine, self.rec)
         self.session = BranchSession(self.engine, max_batch=tp["max_batch"],
@@ -283,7 +310,8 @@ class System:
 
     def sync(self) -> None:
         if self.device != "cpu":
-            torch.cuda.synchronize()
+            for d in self.engine.devices:
+                torch.cuda.synchronize(d)
 
     def memory_peak(self) -> int:
         if self.device == "cpu":
@@ -292,7 +320,9 @@ class System:
                    for i in range(torch.cuda.device_count()))
 
     def release(self) -> Dict[str, Any]:
-        """Free the program's state; the weights stay for the reference."""
+        """Free the program's state; the weights stay for the reference:
+        the tree as drawn, over several shards a tree of
+        :class:`benchlib.weights.Blocks`."""
         weights = self.weights
         self.live.clear()
         self.driver = self.session = self.engine = self.weights = None

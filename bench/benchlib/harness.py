@@ -62,6 +62,11 @@ def run(args: argparse.Namespace, t_start: int) -> Optional[Dict[str, Any]]:
     """The result of one run, or None where the run may print none."""
     cell = files.load_cell(args.workload, args.manifest)
     dev = args.device
+    shards = cell.config["serve"].get("tp", 1)
+    if cell.chips < shards:
+        log(f"{cell.name} serves over tp {shards} shards, one a card, but "
+            f"asks for {cell.chips} card(s)")
+        return None
     if dev == "cuda" and (not torch.cuda.is_available()
                           or torch.cuda.device_count() < cell.chips):
         log(f"{cell.name} needs {cell.chips} CUDA card(s); "
@@ -87,6 +92,9 @@ def run(args: argparse.Namespace, t_start: int) -> Optional[Dict[str, Any]]:
             f"{sum(TR.MARK in e.name for e in events)} marks")
         win.trace = TR.reduce(events, cell.chips, win.rec.spans(),
                               *win.stretch)
+        if win.trace:
+            log(f"trace: busy s by card {win.trace['busy_by_card']} of "
+                f"{win.trace['window_s']:.3f} s")
         prof = None
     weights = system.release()
     bad = forbidden_modules()

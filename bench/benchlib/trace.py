@@ -52,7 +52,8 @@ class Profiler:
         import torch
 
         if self.device != "cpu":
-            torch.cuda.synchronize()
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
 
     def start(self) -> None:
         import torch
@@ -147,11 +148,12 @@ def bounds(events: List[Event], host0: int, host1: int
 def reduce(events: List[Event], cards: int,
            spans: Sequence[Tuple[str, int, int]], host0: int, host1: int,
            top: int = 10) -> Optional[Dict[str, Any]]:
-    """``busy_s`` (mean over ``cards``), ``window_s``, device seconds by
-    operation name, and idle seconds by host span over the stretch between
-    the marker kernels.  ``spans`` are (name, start, end) on the host's
-    clock, ``host0`` and ``host1`` the host times of the stretch's marks.
-    None when the trace holds no device operation."""
+    """``busy_s`` (mean over ``cards``) and each card's, ``window_s``,
+    device seconds by operation name (summed over the cards: the work of
+    every shard), and idle seconds by host span (mean over the cards) over
+    the stretch between the marker kernels.  ``spans`` are (name, start,
+    end) on the host's clock, ``host0`` and ``host1`` the host times of the
+    stretch's marks.  None when the trace holds no device operation."""
     dev = [e for e in events if MARK not in e.name]
     if not dev:
         return None
@@ -177,6 +179,8 @@ def reduce(events: List[Event], cards: int,
         idle["harness"] += (hi - lo) / 1e9 / cards
     rank = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"busy_s": busy_s, "window_s": (hi - lo) / 1e9,
+            "busy_by_card": {i: sum(b - a for a, b in iv) / 1e9
+                             for i, iv in sorted(busy.items())},
             "device_s": dict(by_name),
             "device_ops": [[n, s] for n, s in rank[:top]],
             "idle_gaps": [[n, s] for n, s in sorted(

@@ -78,9 +78,12 @@ def readings(cell: files.Cell, seed: int, seconds: float, device: str,
                prefix_evictions=win.counters["kv.prefix_evictions"])
     del weights, exact, low
     if device != "cpu":
-        out["memory_peak_bytes"] = torch.cuda.max_memory_allocated()
+        cards = range(torch.cuda.device_count())
+        out["memory_peak_bytes"] = max(torch.cuda.max_memory_allocated(i)
+                                       for i in cards)
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
     return out
 
 

@@ -1,8 +1,8 @@
-"""The check of ``correct`` on the CPU rehearsal cell: a sound run passes,
+"""The check of ``correct`` on the CPU rehearsal cells: a sound run passes,
 the control (the reference one precision lower) is not correct, and each
-fault that a one-card serving cell can have, planted under the timed path,
-turns ``correct`` false.  (No cell spans cards, so the fault of an exchange
-between cards left out cannot occur.)"""
+fault that a serving cell can have, planted under the timed path, turns
+``correct`` false: on the one-card cell those of one shard, on the cell
+served over tp 2 those and the exchange between shards left out."""
 
 import time
 
@@ -12,7 +12,12 @@ import torch
 from benchlib import faults, files, harness
 
 CELL = "paper-agentic.agent-tiny"
+TP2 = "paper-agentic-tp2.agent-tiny"
 MANIFEST = files.BENCH_DIR / "rehearsal.json"
+#: (cell, fault): every fault each rehearsal cell can have
+PLANTED = ([(CELL, f) for f in sorted(faults.table()[1])
+            if f not in faults.ACROSS_CARDS]
+           + [(TP2, f) for f in sorted(faults.table()[1])])
 
 
 def run_cell(seed=3, seconds=2.0, cell=CELL):
@@ -39,12 +44,20 @@ def test_the_control_is_not_correct_on_any_seed():
         assert r["control"]["correct"] is False, r
 
 
-@pytest.mark.parametrize("fault", sorted(faults.table()[1]))
-def test_a_planted_fault_is_not_correct(monkeypatch, fault):
+def test_the_control_over_shards_is_not_correct():
+    control = files.load_module(files.BENCH_DIR / "control.py")
+    cell = files.load_cell(TP2, MANIFEST)
+    r = control.readings(cell, 21, 2.0, "cpu", time.perf_counter_ns())
+    assert r["program"]["correct"] is True, r
+    assert r["control"]["correct"] is False, r
+
+
+@pytest.mark.parametrize("cell,fault", PLANTED)
+def test_a_planted_fault_is_not_correct(monkeypatch, cell, fault):
     cls, table = faults.table()
-    monkeypatch.setattr(cls, "_fused_decode_step", table[fault])
+    monkeypatch.setattr(cls, faults.replaced(table[fault]), table[fault])
     with torch.no_grad():
-        r = run_cell(seed=5)
+        r = run_cell(seed=5, cell=cell)
     assert r["correct"] is False, r["checks"]
     assert r["checks"]["max_gap"]["value"] > r["checks"]["max_gap"]["limit"]
 

@@ -51,3 +51,20 @@ def test_the_reference_reaches_nothing_of_the_port():
     assert not mods & {"repro_torch", "repro", "jax", "jaxlib", "flax"}
     src = (files.BENCH_DIR / "reference" / "decoder.py").read_text()
     assert "repro" not in src.replace("this repository", "")
+
+
+def test_the_shard_reference_reaches_nothing_of_the_port():
+    probe = (
+        "import sys; sys.path.insert(0, 'bench');"
+        "from benchlib import files;"
+        "files.load_module(files.BENCH_DIR / 'reference' / "
+        "'decoder_shards.py');"
+        "print('MODULES', sorted({m.split('.')[0] for m in sys.modules}))")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=files.ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    mods = _top_level(r.stdout)
+    assert "torch" in mods
+    assert not mods & {"repro_torch", "repro", "jax", "jaxlib", "flax"}
+    src = (files.BENCH_DIR / "reference" / "decoder_shards.py").read_text()
+    assert "repro" not in src.replace("this repository", "")

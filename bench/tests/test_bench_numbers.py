@@ -165,3 +165,61 @@ def test_latency_readers():
         pytest.approx(stats.percentile(range(1, 11), 95))
     assert math.isclose(files.metric_reader("explore_tok_s").read(
         _window(rec=Record(decodes=[(0, 10, 96, 1, 0)] * 4))), 4 * 96 / 2.0)
+
+
+def test_two_cards_busy_and_idle_are_means():
+    # card 0 busy [200, 400) and [700, 800) as above; card 1 [100, 600)
+    ev, spans, host0 = synthetic()
+    ev = ev + [TR.Event("gemm", 100, 600, index=1)]
+    tr = TR.reduce(ev, 2, spans, host0, host0 + 1000)
+    assert tr["busy_s"] == pytest.approx((300e-9 + 500e-9) / 2)
+    assert tr["busy_by_card"] == pytest.approx({0: 300e-9, 1: 500e-9})
+    assert sum(s for _, s in tr["idle_gaps"]) == pytest.approx(
+        tr["window_s"] - tr["busy_s"])
+    # card 1's idle [600, 1100) began inside engine.decode
+    assert dict(tr["idle_gaps"]) == pytest.approx(
+        {"driver.step": 100e-9 / 2, "engine.decode": (300e-9 + 500e-9) / 2,
+         "harness": 300e-9 / 2})
+    idle = files.metric_reader("device_idle_share.tok").read(
+        _window(trace=tr, chips=2))
+    assert idle == pytest.approx(60.0)
+    # four cards of which two ran nothing: each idle card counts whole
+    four = TR.reduce(ev, 4, spans, host0, host0 + 1000)
+    assert four["busy_s"] == pytest.approx(800e-9 / 4)
+    assert sum(s for _, s in four["idle_gaps"]) == pytest.approx(
+        1000e-9 - 800e-9 / 4)
+
+
+def _k1_trace(cards, kernel_ns):
+    """A 2 s stretch in which each of ``cards`` ran K1 for ``kernel_ns``."""
+    ev = [TR.Event("spin_kernel", 0, 10),
+          TR.Event("spin_kernel", 2 * 10 ** 9 + 10, 2 * 10 ** 9 + 20)]
+    ev += [TR.Event("paged_tc_kernel<128>", 100, 100 + kernel_ns, index=c)
+           for c in range(cards)]
+    return TR.reduce(ev, cards, [], 0, 2 * 10 ** 9)
+
+
+def test_k1_roofline_over_shards_counts_the_work_once():
+    # the same rows at tp 1 and at tp 4: a card of four reads a quarter of
+    # the kv heads, so each runs K1 a quarter as long, and the device time
+    # summed over the cards is tp 1's
+    rec = Record()
+    rec.decodes = [(10, 20, 32, 32 * 4096, 8 * 4096 + 32)]
+    bound = work.paged_attention_bound_s(GRANITE, 32, 1, 32 * 4096,
+                                         8 * 4096 + 32)
+    one = _k1_trace(1, int(4 * bound * 1e9))
+    four = _k1_trace(4, int(bound * 1e9))
+    reader = files.metric_reader("k1_roofline.tok")
+    at1 = reader.read(_window(rec=rec, trace=one, stretch=(0, 100)))
+    at4 = reader.read(_window(rec=rec, trace=four, stretch=(0, 100),
+                              chips=4))
+    assert at1 == pytest.approx(25.0, rel=1e-6)
+    assert at4 == pytest.approx(at1, rel=1e-6)
+    # step_mfu divides by every card's peak; every share stays under 100%
+    mfu = files.metric_reader("step_mfu.tok")
+    m1 = mfu.read(_window(rec=rec, stretch=(0, 2 * 10 ** 9)))
+    m4 = mfu.read(_window(rec=rec, stretch=(0, 2 * 10 ** 9), chips=4))
+    assert m4 == pytest.approx(m1 / 4)
+    idle = files.metric_reader("device_idle_share.tok")
+    for share in (at1, at4, m1, m4, idle.read(_window(trace=four, chips=4))):
+        assert 0 < share <= 100
